@@ -1,0 +1,186 @@
+"""Build and load the hand-written CUDA kernels of csrc/ (nvcc + ctypes).
+
+At first use, the csrc/*.cu sources and a constants header generated from
+fields/bn254.py are compiled by nvcc for sm_90a into one shared library with
+a plain C interface, under build/torch_kernels/<hash>/ at the root of the
+checkout (a directory .gitignore lists).  The hash covers the sources, the
+header and the flags, so a changed source builds anew.  The library is
+loaded with ctypes: every pointer and the stream cross as c_void_p, sizes as
+c_int or c_longlong.  Each C entry point returns cudaGetLastError() after
+its launch, and `check` raises if that is not 0.
+
+Kernel wrappers add one to LAUNCHES[name] each time they launch a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from codex_storage_proofs_circuits_tpu.fields import bn254
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+LIB_NAME = "libcspc_torch_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+NVCC_TIMEOUT_S = 900
+
+# Launch counts of the kernels: K1 "perm", K2 "sponge2", K3 "prng".
+LAUNCHES = {"perm": 0, "sponge2": 0, "prng": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    # x, xrs, xcs, y, yrs, ycs, z, zrs, zcs, key, out, out_lanes, n, device, stream
+    "cspc_p2_perm": [_VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _I, _VP, _I, _LL, _I, _VP],
+    # blocks, nb, out, n, device, stream
+    "cspc_p2_sponge2": [_VP, _I, _VP, _LL, _I, _VP],
+    # seed1_base, seed2_base, out, n_steps, n, device, stream
+    "cspc_fake_prng_rows": [_VP, _VP, _VP, _I, _LL, _I, _VP],
+}
+
+
+def _words(x: int) -> str:
+    """Integer < 2^256 -> C initializer of 8 little-endian 32-bit words."""
+    return "{" + ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(8)) + "}"
+
+
+def constants_header() -> str:
+    """The Poseidon2 constants of fields/bn254.py as a CUDA header: P, the
+    32-bit Montgomery quotient factor, and the round constants, Merkle keys
+    and sponge IV in Montgomery form (R = 2^256), as 8 x 32-bit words."""
+    mont = bn254.to_mont
+    p = bn254.P
+    lines = [
+        "// generated by kernels/build.py from fields/bn254.py; do not edit",
+        "#pragma once",
+        "#include <cstdint>",
+        "",
+        f"#define FR_PINV 0x{(-pow(p, -1, 1 << 32)) % (1 << 32):08x}u  // -P^-1 mod 2^32",
+        f"#define P2_N_INTERNAL {bn254.N_INTERNAL_ROUNDS}",
+        f"static __constant__ uint32_t FR_P[8] = {_words(p)};",
+        f"static __constant__ uint32_t P2_EXT_RC[{bn254.N_EXTERNAL_ROUNDS}][3][8] = {{",
+    ]
+    for triple in bn254.EXTERNAL_ROUND_CONSTS:
+        lines.append("  {" + ", ".join(_words(mont(c)) for c in triple) + "},")
+    lines.append("};")
+    lines.append(f"static __constant__ uint32_t P2_INT_RC[{bn254.N_INTERNAL_ROUNDS}][8] = {{")
+    lines.extend(f"  {_words(mont(c))}," for c in bn254.INTERNAL_ROUND_CONSTS)
+    lines.append("};")
+    lines.append("static __constant__ uint32_t P2_KEYS[4][8] = {")
+    lines.extend(f"  {_words(mont(k))}," for k in range(4))
+    lines.append("};")
+    lines.append(
+        f"static __constant__ uint32_t P2_SPONGE2_IV[8] = {_words(mont((1 << 64) + 0x0302))};"
+    )
+    return "\n".join(lines) + "\n"
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.h")))
+
+
+def build_dir() -> str:
+    """The directory the library of the current sources is built into."""
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(constants_header().encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _replace_atomically(path: str, data: bytes) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def _build(out_dir: str) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    _replace_atomically(
+        os.path.join(out_dir, "poseidon2_bn254_constants.h"), constants_header().encode()
+    )
+    tmp = os.path.join(out_dir, f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-o", tmp]
+    cmd += [s for s in _sources() if s.endswith(".cu")]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s") from e
+    _replace_atomically(os.path.join(out_dir, "nvcc.log"), (r.stdout + r.stderr).encode())
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-6000:]}")
+    os.replace(tmp, os.path.join(out_dir, LIB_NAME))
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out_dir = build_dir()
+            so = os.path.join(out_dir, LIB_NAME)
+            if not os.path.exists(so):
+                _build(out_dir)
+            lib = ctypes.CDLL(so)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cspc_error_string.argtypes = [ctypes.c_int]
+            lib.cspc_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load().cspc_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require_cuda(t: torch.Tensor, what: str, dtype, shape: tuple | None = None) -> None:
+    """Raise unless t is a CUDA tensor of dtype (and shape, None = any size)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if shape is not None and (
+        t.ndim != len(shape)
+        or any(w is not None and w != s for w, s in zip(shape, t.shape))
+    ):
+        raise ValueError(f"{what}: shape {tuple(t.shape)} does not match {shape}")
+
+
+def launch_args(t: torch.Tensor) -> tuple[int, int]:
+    """(device index, stream handle) for a launch on t's device."""
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(t.device).cuda_stream

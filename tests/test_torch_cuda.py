@@ -1,0 +1,82 @@
+"""The CUDA kernels K1, K2, K3 against their plain torch versions, and the
+slice on the card against the oracle, bit-exact.
+
+Every test here needs a CUDA device (and nvcc) and skips without one.  The
+file imports no jax, so it also runs on a machine with the card and no jax:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from codex_storage_proofs_circuits_tpu.fields import bn254 as F
+from codex_storage_proofs_circuits_tpu.oracle.dataset import DataSetConfig, GlobalConfig
+from codex_storage_proofs_circuits_tpu.oracle.sampling import generate_proof_input as oracle_pi
+from codex_storage_proofs_circuits_tpu.oracle.slot import DataSource, gen_fake_cell
+from codex_storage_proofs_circuits_tpu_torch.kernels import build
+from codex_storage_proofs_circuits_tpu_torch.models import proof_input as TPI
+from codex_storage_proofs_circuits_tpu_torch.ops import fake_prng as TF
+from codex_storage_proofs_circuits_tpu_torch.ops import limbs as TL
+from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_cuda as TC
+from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_plain as TP
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _canonical(rng, shape):
+    arr = rng.integers(0, 1 << 16, size=shape, dtype=np.int32)
+    arr[..., 15, :] = rng.integers(0, F.P >> 240, size=arr[..., 15, :].shape)
+    return torch.from_numpy(arr)
+
+
+def test_permutation_and_compress_match_plain(cuda):
+    rng = np.random.default_rng(41)
+    state = _canonical(rng, (3, 16, 257))  # not a multiple of the block size
+    before = build.LAUNCHES["perm"]
+    assert torch.equal(TC.permutation(state.to(cuda)).cpu(), TP.permutation(state))
+    layer = state[0][:, :256]
+    for key in range(4):
+        got = TC.compress_layer(layer.to(cuda)[:, 0::2], layer.to(cuda)[:, 1::2], key)
+        want = TP.compress(layer[:, 0::2], layer[:, 1::2], TP.KEY_MONT[key])
+        assert torch.equal(got.cpu(), want)
+    assert build.LAUNCHES["perm"] == before + 5
+    with pytest.raises(ValueError):  # odd width: the halves differ
+        TC.compress_layer(state[0].to(cuda)[:, 0::2], state[0].to(cuda)[:, 1::2], 0)
+    kat = torch.stack([TL.pack([F.to_mont(v)], cuda) for v in F.PERMUTATION_KAT_INPUT])
+    out = TC.permutation(kat)
+    assert tuple(F.from_mont(TL.unpack(out[k])[0]) for k in range(3)) == F.PERMUTATION_KAT_OUTPUT
+
+
+def test_sponge2_matches_plain(cuda):
+    rng = np.random.default_rng(42)
+    blocks = _canonical(rng, (5, 2, 16, 130))
+    got = TC.sponge2_absorb(blocks.to(cuda))
+    assert torch.equal(got.cpu(), TP.sponge2_absorb(blocks))
+    with pytest.raises(ValueError):
+        TC.sponge2_absorb(blocks.to(cuda).transpose(0, 1))  # not (nb, 2, 16, B)
+
+
+def test_prng_matches_plain_and_oracle(cuda):
+    s1, s2 = TF.fake_seed_bases(424242, 11, cuda)
+    got = TF.gen_rows(s1, s2, 64, 4099)
+    assert torch.equal(got, TF.gen_rows_plain(*TF.seed_planes(s1, s2, 4099), 64))
+    assert got[:, 4098].cpu().numpy().tobytes() == gen_fake_cell(64, 424242, 11 + 4098)
+
+
+def test_slice_on_cuda_matches_oracle(cuda):
+    glob = GlobalConfig(max_depth=16, max_log2_n_slots=4, cell_size=64, block_size=256)
+    dset = DataSetConfig(n_slots=3, n_cells=32, n_samples=4,
+                         data_src=DataSource("fake", seed=5))
+    want = oracle_pi(glob, dset, 1, 7)
+    assert TPI.generate_proof_input(glob, dset, 1, 7, device=cuda) == want
+    got = TPI.generate_proof_input_streaming(glob, dset, 1, 7, chunk_cells=8, device=cuda)
+    assert got == want

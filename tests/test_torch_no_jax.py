@@ -1,0 +1,40 @@
+"""The port imports no jax: every module of the port package, and
+chip_smoke.py, load in a fresh interpreter with jax absent from sys.modules
+(the machine with the GPU has no jax)."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import codex_storage_proofs_circuits_tpu_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules() -> list[str]:
+    return [port.__name__] + [
+        m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")
+    ]
+
+
+def test_port_modules_are_found():
+    mods = _port_modules()
+    for name in ("ops.limbs", "ops.poseidon2_cuda", "ops.fake_prng", "kernels.build",
+                 "models.streaming", "models.proof_input", "utils.cli", "convert"):
+        assert f"{port.__name__}.{name}" in mods
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules() + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
