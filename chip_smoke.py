@@ -6,17 +6,29 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases:
-  1. device: the card's name and power limit (nvidia-smi);
+  1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
   2. build: nvcc builds the kernels of csrc/ (build seconds, ptxas report);
-  3. each kernel against its plain torch version on the card, bitwise, at
-     the shapes the main path gives it (one 2^16-cell chunk of 2048-byte
-     cells), with the times of both;
-  4. the port CLI on a small dataset (5 slots x 256 cells), which must equal
-     the pure-Python oracle exactly;
-  5. the port CLI on two 1 GB fake-data slots (2^19 cells of 2048 bytes),
-     the streaming path, checked on the host: cell hashes, Merkle paths,
-     the dataset proof, the witness evaluator, and the kernels' launch
-     counts from that run; then one warm 1 GB slot-root build, timed.
+  3. each kernel (K1-K6) against its plain torch version on the card,
+     bitwise, at the shapes the main paths give it (one 2^16-cell chunk of
+     2048-byte cells and one layer of its tree), with the times of both and
+     the least time the card could take for the same work (bound_ms);
+  4. BN254: the port CLI on a small dataset (5 slots x 256 cells), which
+     must equal the pure-Python oracle exactly;
+  5. BN254: the port CLI on two 1 GB fake-data slots (2^19 cells of 2048
+     bytes), the streaming path, checked on the host: cell hashes, Merkle
+     paths, the dataset proof, the witness evaluator, and the kernels'
+     launch counts from that run; then one warm 1 GB slot-root build, timed,
+     and one under torch.profiler (device time by kernel, idle share);
+  6. Goldilocks, both hashes: the port CLI on a small dataset (5 slots x
+     128 cells), which must equal the oracle's export exactly;
+  7. Goldilocks, each hash on its own: the port CLI with --check on two
+     1 GB slots, checked on the host (cell digests, Merkle paths, the
+     dataset proof, check_proof_input_gl) with the launch counts of that
+     run; then one warm 1 GB slot-root build, timed, and one profiled.
+
+Each main path (phase 5, and phase 7 once per hash) sets the launch counts
+to 0 just before its CLI run and reads them just after: every kernel of
+that path must have launched, and no kernel of another path.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Any failed check raises: the exit code is then non-zero and there is no
@@ -35,25 +47,34 @@ import time
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.fields import bn254
-from codex_storage_proofs_circuits_tpu.models.data import gen_fake_cells
-from codex_storage_proofs_circuits_tpu.models.witness import evaluate_witness, generate_witness
-from codex_storage_proofs_circuits_tpu.oracle.dataset import slot_cfg_from_dataset_cfg
-from codex_storage_proofs_circuits_tpu.oracle.merkle import MerkleProof, reconstruct_root
-from codex_storage_proofs_circuits_tpu.oracle.sampling import generate_proof_input as oracle_proof_input
-from codex_storage_proofs_circuits_tpu.oracle.sampling import sample_cell_indices
-from codex_storage_proofs_circuits_tpu.oracle.slot import (
+from codex_storage_proofs_circuits_tpu_torch.fields import bn254
+from codex_storage_proofs_circuits_tpu_torch.oracle import goldilocks as GO
+from codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline import (
+    check_proof_input_gl,
+    export_proof_input_gl,
+    generate_proof_input_gl as oracle_proof_input_gl,
+)
+from codex_storage_proofs_circuits_tpu_torch.models.data import gen_fake_cells
+from codex_storage_proofs_circuits_tpu_torch.models.witness import evaluate_witness, generate_witness
+from codex_storage_proofs_circuits_tpu_torch.oracle.dataset import slot_cfg_from_dataset_cfg
+from codex_storage_proofs_circuits_tpu_torch.oracle.merkle import MerkleProof, reconstruct_root
+from codex_storage_proofs_circuits_tpu_torch.oracle.sampling import generate_proof_input as oracle_proof_input
+from codex_storage_proofs_circuits_tpu_torch.oracle.sampling import sample_cell_indices
+from codex_storage_proofs_circuits_tpu_torch.oracle.slot import (
     cell_data_to_field_elements,
     check_cell_proof,
     gen_fake_cell,
     hash_cell_bytes,
 )
-from codex_storage_proofs_circuits_tpu.utils.json_export import load_proof_input
+from codex_storage_proofs_circuits_tpu_torch.utils.json_export import load_proof_input
 from codex_storage_proofs_circuits_tpu_torch.kernels import build
 from codex_storage_proofs_circuits_tpu_torch.models import hashing as H
 from codex_storage_proofs_circuits_tpu_torch.models import streaming as S
 from codex_storage_proofs_circuits_tpu_torch.ops import encode as E
 from codex_storage_proofs_circuits_tpu_torch.ops import fake_prng as F
+from codex_storage_proofs_circuits_tpu_torch.ops import gl_encode as GE
+from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_cuda as GC
+from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_plain as GP
 from codex_storage_proofs_circuits_tpu_torch.ops import limbs as L
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_cuda as P2C
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_plain as P2
@@ -62,13 +83,49 @@ from codex_storage_proofs_circuits_tpu_torch.utils import cli
 CHUNK = S.DEFAULT_CHUNK_CELLS  # cells per streaming chunk on the main path
 CELL = 2048
 SEED = 12345
+HASHES = ("poseidon2", "monolith")
+_SRC = "codex_storage_proofs_circuits_tpu_torch/csrc/"
+_TPU = "codex_storage_proofs_circuits_tpu/ops/"
+# launch counter -> (name, source, TPU kernel replaced)
 KERNELS = {
-    "perm": ("poseidon2_bn254_perm", "codex_storage_proofs_circuits_tpu_torch/csrc/poseidon2_bn254.cu",
-             "codex_storage_proofs_circuits_tpu/ops/poseidon2_pallas.py:297"),
-    "sponge2": ("poseidon2_bn254_sponge2", "codex_storage_proofs_circuits_tpu_torch/csrc/poseidon2_bn254.cu",
-                "codex_storage_proofs_circuits_tpu/ops/poseidon2_pallas.py:324"),
-    "prng": ("fake_prng_rows", "codex_storage_proofs_circuits_tpu_torch/csrc/fake_prng.cu",
-             "codex_storage_proofs_circuits_tpu/ops/fake_prng.py:217"),
+    "perm": ("poseidon2_bn254_perm", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:297"),
+    "sponge2": ("poseidon2_bn254_sponge2", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:324"),
+    "prng": ("fake_prng_rows", _SRC + "fake_prng.cu", _TPU + "fake_prng.py:217"),
+    "gl_perm": ("poseidon2_gl_perm", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:193"),
+    "mono_perm": ("monolith_perm", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:164"),
+    "gl_sponge8": ("poseidon2_gl_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
+    "mono_sponge8": ("monolith_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
+}
+PATH_COUNTERS = {  # the kernels each main path must launch, and no other
+    "bn254": ("perm", "sponge2", "prng"),
+    "poseidon2": ("prng", "gl_perm", "gl_sponge8"),
+    "monolith": ("prng", "mono_perm", "mono_sponge8"),
+}
+
+# The card's peak rates for the bound (NVIDIA H100 SXM data sheet): device
+# memory 3.35 TB/s; 32-bit integer multiply-adds 64 per clock on each of 132
+# SMs, at the maximum SM clock nvidia-smi reports (set in main()).
+MEM_BYTES_PER_S = 3.35e12
+SMS, IMAD_PER_CLOCK = 132, 64
+SM_CLOCK_HZ = 0.0
+
+# 32-bit integer multiply instructions per unit of work, counted by hand
+# from the sources: a 32 x 32 -> 64 product counts 2 (low and high half), a
+# 32 x 32 -> 32 product 1.  Multiplies by the small constants of the linear
+# layers are left out, so the count is a lower bound.
+#   BN254 (K1, K2), per permutation: 240 Montgomery products (x^5 is 3, on
+#     3 lanes in 8 external rounds and 1 lane in 56 internal), each 8 x (8 + 8)
+#     wide products and 8 low ones: 240 * 264.
+#   K3, per byte: two 64 x 64 -> 64 products (4 each), one 64 x 64 -> high 64
+#     by the modulus' reciprocal (8) and the quotient times the modulus (4).
+#   Goldilocks, per permutation: a modular product is 64 x 64 -> 128, 4 wide
+#     products (8).  Poseidon2-GL: 8 x 12 x^7 (4 products each) in the
+#     external rounds, 22 x (4 + 12) in the internal ones = 736 products.
+#     Monolith: 6 rounds x 11 squares in Bricks = 66 products.
+MUL_OPS = {
+    "perm": 240 * 264, "sponge2": 240 * 264, "prng": 20,
+    "gl_perm": 736 * 8, "gl_sponge8": 736 * 8,
+    "mono_perm": 66 * 8, "mono_sponge8": 66 * 8,
 }
 
 
@@ -88,8 +145,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, kernel, plain, reps: int, results: dict) -> None:
-    """Kernel against plain version on the same inputs: bitwise equal, both timed."""
+def bound(name: str, n_bytes: int, units: int) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the multiply instructions over the integer multiply rate."""
+    mem_ms = n_bytes / MEM_BYTES_PER_S * 1e3
+    op_ms = units * MUL_OPS[name] / (SMS * IMAD_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def compare(name: str, kernel, plain, reps: int, results: dict, work=None) -> None:
+    """Kernel against plain version on the same inputs: bitwise equal, both
+    timed.  work = (bytes, units of MUL_OPS) of one kernel call, for its
+    bound; the last call compared under a name is the one reported."""
     got = kernel()
     torch.cuda.synchronize()
     want = None
@@ -106,7 +178,10 @@ def compare(name: str, kernel, plain, reps: int, results: dict) -> None:
         raise AssertionError(f"{name}: kernel and plain version disagree")
     r = results.setdefault(name, {"max_abs_err": 0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    r.update(ms=ms, plain_ms=plain_ms)
+    r.update(ms=ms, plain_ms=plain_ms, library_ms=None)
+    if work is not None:
+        r.update(bound(name, *work))
+        log(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
 
 
 def random_canonical(rng, shape) -> torch.Tensor:
@@ -137,6 +212,7 @@ def phase_kernels(results: dict) -> None:
         lambda: P2.compress(layer[:, 0::2], layer[:, 1::2], P2.KEY_MONT[1]),
         20,
         results,
+        (nbytes(layer) + nbytes(layer[:, 0::2]), CHUNK // 2),
     )
 
     # K3: one main-path chunk of fake cells, and a few cells against the
@@ -148,6 +224,7 @@ def phase_kernels(results: dict) -> None:
         lambda: F.gen_rows_plain(*F.seed_planes(s1, s2, CHUNK), CELL),
         20,
         results,
+        (nbytes(s1, s2) + CELL * CHUNK, CELL * CHUNK),
     )
     rows = F.gen_rows(s1, s2, CELL, CHUNK)
     host = gen_fake_cells(CELL, SEED, np.arange(8))
@@ -163,7 +240,34 @@ def phase_kernels(results: dict) -> None:
         lambda: P2.sponge2_absorb(blocks),
         3,
         results,
+        (nbytes(blocks) + 16 * 4 * CHUNK, blocks.shape[0] * CHUNK),
     )
+
+    # K4 / K5: the KAT state [0..11] against the oracle, random states, and
+    # the key-1 compression of one main-path layer (2^16 -> 2^15 digests);
+    # K6 with each core over the chunk's encoded cells (272 felts a cell)
+    felts = GE.encode_rows(rows)
+    digests = torch.from_numpy(rng.integers(0, 1 << 16, (4, 4, CHUNK), dtype=np.int32)).cuda()
+    kat = torch.stack([GP.pack([v], dev) for v in range(12)])
+    for hash_fun in HASHES:
+        perm, sponge = ("gl_perm", "gl_sponge8") if hash_fun == "poseidon2" else (
+            "mono_perm", "mono_sponge8")
+        out = GC.permutation(kat, hash_fun)
+        if [GP.unpack(out[i])[0] for i in range(12)] != GO.PERMUTATIONS[hash_fun](list(range(12))):
+            raise AssertionError(f"{perm}: permutation of [0..11] differs from the oracle")
+        log(f"  {perm}: KAT ok")
+        states = torch.from_numpy(rng.integers(0, 1 << 16, (12, 4, 4096), dtype=np.int32)).cuda()
+        compare(perm, lambda: GC.permutation(states, hash_fun),
+                lambda: GP.permutation(states, hash_fun), 20, results)
+        x, y = digests[:, :, 0::2], digests[:, :, 1::2]
+        compare(perm, lambda: GC.compress(x, y, 1, hash_fun),
+                lambda: GP.compress_batch(hash_fun, 1, x, y), 20, results,
+                (nbytes(digests) + nbytes(x), CHUNK // 2))
+        compare(sponge, lambda: GC.sponge_digest_felts(felts, hash_fun),
+                lambda: GP.sponge_digest_felts(hash_fun, felts), 3, results,
+                (nbytes(felts) + 16 * 4 * CHUNK, (felts.shape[0] + 8) // 8 * CHUNK))
+    log(f"  (GL widths: states 4096, compress {CHUNK} -> {CHUNK // 2}, sponge {CHUNK} cells"
+        f" of {felts.shape[0]} felts)")
 
 
 def phase_small(tmp: str) -> None:
@@ -183,6 +287,24 @@ def phase_small(tmp: str) -> None:
     log(f"  small proof input equals the oracle (port {port_s:.2f} s, oracle {time.perf_counter() - t0:.2f} s)")
 
 
+def reset_launches() -> None:
+    for k in build.LAUNCHES:
+        build.LAUNCHES[k] = 0
+
+
+def check_launches(path: str) -> dict:
+    """The counts since reset_launches(): every kernel of the path launched,
+    no kernel of another path."""
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in PATH_COUNTERS[path] if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{path}: kernels of the main path were not launched: {missing}")
+    stray = [k for k, n in launches.items() if n and k not in PATH_COUNTERS[path]]
+    if stray:
+        raise AssertionError(f"{path}: kernels of another path were launched: {stray}")
+    return launches
+
+
 def phase_full(tmp: str) -> dict:
     out = os.path.join(tmp, "full.json")
     argv = ["--field=bn254", "--device=cuda", "--nslots=2", "--log2ncells=19",
@@ -191,17 +313,14 @@ def phase_full(tmp: str) -> dict:
     args = cli.build_parser().parse_args(argv)
     glob, dset = cli.configs_from_args(args)
 
-    for k in build.LAUNCHES:
-        build.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
         raise AssertionError("cspc-torch failed on the 1 GB slots")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    launches = check_launches("bn254")
     log(f"  2 x 1 GB proof input: {wall:.2f} s, launches {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
 
     pi = load_proof_input(out)
     cfg = slot_cfg_from_dataset_cfg(glob, dset, pi.slot_index)
@@ -223,17 +342,194 @@ def phase_full(tmp: str) -> dict:
     evaluate_witness(glob, pi, generate_witness(glob, pi))
     log(f"  host checks ok: {len(idxs)} cell hashes and paths, slotProof, witness")
 
+    cfg = slot_cfg_from_dataset_cfg(glob, dset, 0)
     stats = S.StreamingStats()
     t0 = time.perf_counter()
-    root = S.streaming_slot_root(slot_cfg_from_dataset_cfg(glob, dset, 0), stats=stats)
+    root = S.streaming_slot_root(cfg, stats=stats)
     warm = time.perf_counter() - t0
     log(f"  warm 1 GB slot-root build: {warm:.4f} s, stats {json.dumps(stats.as_dict())}")
     if pi.slot_index == 0 and root != pi.slot_root:
         raise AssertionError("warm slot root differs")
+    log_profile("bn254", lambda: S.streaming_slot_root(cfg))
+    return launches
+
+
+def phase_small_gl(tmp: str) -> None:
+    for hash_fun in HASHES:
+        out = os.path.join(tmp, f"small_gl_{hash_fun}.json")
+        argv = [f"--hash={hash_fun}", "--device=cuda", "--nslots=5", "--ncells=128",
+                "--check", f"--output={out}"]
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cspc-torch failed on the small {hash_fun} dataset")
+        port_s = time.perf_counter() - t0
+        args = cli.build_parser().parse_args(argv)
+        glob, dset = cli.configs_from_args(args)
+        t0 = time.perf_counter()
+        want = oracle_proof_input_gl(hash_fun, glob, dset, args.index, GO.int_to_digest(args.entropy))
+        oracle_s = time.perf_counter() - t0
+        ref = os.path.join(tmp, f"small_gl_{hash_fun}_oracle.json")
+        export_proof_input_gl(ref, want)
+        with open(out, "rb") as a, open(ref, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"small {hash_fun} proof input differs from the oracle")
+        log(f"  {hash_fun}: small proof input equals the oracle's export (port {port_s:.2f} s,"
+            f" oracle {oracle_s:.2f} s)")
+
+
+def load_proof_input_gl(path: str):
+    """The Goldilocks JSON export back into a ProofInputGL."""
+    from codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline import ProofInputGL
+
+    with open(path) as f:
+        d = json.load(f)
+
+    def dig(v):
+        return tuple(int(x) for x in v)
+
+    return ProofInputGL(
+        entropy=dig(d["entropy"]), data_set_root=dig(d["dataSetRoot"]),
+        slot_index=d["slotIndex"], slot_root=dig(d["slotRoot"]),
+        n_slots_per_dataset=d["nSlotsPerDataSet"], n_cells_per_slot=d["nCellsPerSlot"],
+        slot_proof=[dig(x) for x in d["slotProof"]],
+        cell_data=[[dig(x) for x in cell] for cell in d["cellData"]],
+        merkle_paths=[[dig(x) for x in path] for path in d["merklePaths"]],
+    )
+
+
+def host_checks_gl(hash_fun: str, glob, dset, pi) -> None:
+    """Each sampled cell's digest and Merkle path, the dataset proof and
+    check_proof_input_gl, with the port's oracle."""
+    comp = GO.compress_fn(hash_fun)
+    cfg = slot_cfg_from_dataset_cfg(glob, dset, pi.slot_index)
+    log_n = dset.n_cells.bit_length() - 1
+    btd = glob.block_tree_depth
+    k = cfg.cells_per_block
+    for s in range(dset.n_samples):
+        idx = GO.sample_cell_index_gl(hash_fun, pi.entropy, pi.slot_root, dset.n_cells, s + 1)
+        cell = gen_fake_cell(CELL, cfg.data_src.seed, idx)
+        if pi.cell_data[s] != GO.bytes_to_digests_gl(cell):
+            raise AssertionError(f"{hash_fun}: cell data of sample {s} differs")
+        path = pi.merkle_paths[s]
+        block_root = reconstruct_root(
+            MerkleProof(idx % k, GO.digest_bytes(hash_fun, cell), list(path[:btd]), k), comp)
+        top = MerkleProof(idx >> btd, block_root, list(path[btd:log_n]), dset.n_cells >> btd)
+        if reconstruct_root(top, comp) != pi.slot_root:
+            raise AssertionError(f"{hash_fun}: Merkle path of sample {s} does not reach slotRoot")
+        if any(d != GO.ZERO_DIGEST for d in path[log_n:]):
+            raise AssertionError(f"{hash_fun}: Merkle path of sample {s} is not zero-padded")
+    log_s = max(1, (dset.n_slots - 1).bit_length())
+    proof = MerkleProof(pi.slot_index, pi.slot_root, list(pi.slot_proof[:log_s]), dset.n_slots)
+    if reconstruct_root(proof, comp) != pi.data_set_root:
+        raise AssertionError(f"{hash_fun}: slotProof does not reach dataSetRoot")
+    check_proof_input_gl(hash_fun, glob, pi)
+
+
+def profile_root(fn) -> dict:
+    """Device time by kernel of one fn() under torch.profiler: the device
+    events' durations, grouped, their union (busy), their span, and the
+    host wall of that same profiled call (fn() through a device sync)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def group(name: str) -> str:
+        if "p2_perm_kernel" in name:
+            return "K1 perm"
+        if "p2_sponge2_kernel" in name:
+            return "K2 sponge2"
+        if "fake_prng_rows_kernel" in name:
+            return "K3 fake_prng"
+        if "gl_sponge8_kernel" in name:
+            return "K6 sponge8"
+        if "gl_perm_kernel" in name:  # the template argument is the hash
+            return "K5 mono_perm" if "<1>" in name or "ILi1E" in name else "K4 gl_perm"
+        return "other: torch passes, copies"
+
+    groups: dict = {}
+    other: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms = e.time_range.elapsed_us() / 1e3
+        g = group(e.name)
+        groups[g] = groups.get(g, 0.0) + ms
+        if g.startswith("other"):
+            other[e.name[:60]] = other.get(e.name[:60], 0.0) + ms
+    busy_us, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a >= end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3 if spans else 0.0
+    top_other = dict(sorted(other.items(), key=lambda kv: -kv[1])[:4])
+    return {"busy_ms": busy_us / 1e3, "span_ms": span_ms, "wall_ms": wall_ms,
+            "events": len(spans), "ms_by_kernel": groups, "top_other_ms": top_other}
+
+
+def log_profile(label: str, fn) -> None:
+    """Profile one warm slot-root build and log where its device time went.
+    Idle is 1 - busy / wall of the profiled call itself; the profiler's
+    own host cost is inside that wall, so the share is an upper bound of
+    the unprofiled build's."""
+    prof = profile_root(fn)
+    if prof["events"] == 0:
+        log(f"  {label}: torch.profiler saw no device events")
+        return
+    log(f"  {label}: profiled build: wall {prof['wall_ms']:.3f} ms, {prof['events']} device"
+        f" events, busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms device span;"
+        f" idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f} % of the profiled wall,"
+        f" {100 * (1 - prof['busy_ms'] / prof['span_ms']):.1f} % of the device span;"
+        f" ms by kernel {json.dumps(prof['ms_by_kernel'])};"
+        f" largest others {json.dumps(prof['top_other_ms'])}")
+
+
+def phase_full_gl(tmp: str, hash_fun: str) -> dict:
+    """One Goldilocks main path (one hash): its launch counts are set to 0
+    just before its CLI run and read just after."""
+    out = os.path.join(tmp, f"full_gl_{hash_fun}.json")
+    argv = [f"--hash={hash_fun}", "--device=cuda", "--nslots=2", "--log2ncells=19",
+            f"--cellsize={CELL}", "--blocksize=65536", "--nsamples=5", "--check",
+            f"--output={out}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError(f"cspc-torch failed on the {hash_fun} 1 GB slots")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches(hash_fun)
+    log(f"  {hash_fun}: 2 x 1 GB proof input: {wall:.2f} s, launches {launches}")
+
+    glob, dset = cli.configs_from_args(cli.build_parser().parse_args(argv))
+    pi = load_proof_input_gl(out)
+    host_checks_gl(hash_fun, glob, dset, pi)
+    log(f"  {hash_fun}: host checks ok: {dset.n_samples} cell digests and paths, slotProof,"
+        " check_proof_input_gl")
+
+    cfg = slot_cfg_from_dataset_cfg(glob, dset, 0)
+    stats = S.StreamingStats()
+    t0 = time.perf_counter()
+    root = S.streaming_slot_root_gl(cfg, hash_fun, stats=stats)
+    warm = time.perf_counter() - t0
+    log(f"  {hash_fun}: warm 1 GB slot-root build {warm:.4f} s, stats {json.dumps(stats.as_dict())}")
+    if pi.slot_index == 0 and root != pi.slot_root:
+        raise AssertionError(f"{hash_fun}: warm slot root differs")
+    log_profile(hash_fun, lambda: S.streaming_slot_root_gl(cfg, hash_fun))
     return launches
 
 
 def main() -> int:
+    global SM_CLOCK_HZ
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     kind = torch.cuda.get_device_name(0)
@@ -241,7 +537,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    log(f"[1] device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0]
+    SM_CLOCK_HZ = float(clock) * 1e6
+    log(f"[1] device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"max SM clock {clock} MHz")
     log(smi)
 
     t0 = time.perf_counter()
@@ -257,18 +559,25 @@ def main() -> int:
     phase_kernels(results)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4] small main path against the oracle")
+        log("[4] BN254: small main path against the oracle")
         phase_small(tmp)
-        log("[5] full-width main path: 2 slots of 1 GB")
-        launches = phase_full(tmp)
+        log("[5] BN254: full-width main path: 2 slots of 1 GB")
+        launches = {"bn254": phase_full(tmp)}
+        log("[6] Goldilocks: small main path against the oracle, both hashes")
+        phase_small_gl(tmp)
+        log("[7] Goldilocks: full-width main path: 2 slots of 1 GB, each hash")
+        for hash_fun in HASHES:
+            launches[hash_fun] = phase_full_gl(tmp, hash_fun)
 
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         r = results[key]
+        path = next(p for p, keys in PATH_COUNTERS.items() if key in keys)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches[path][key],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,10 @@
 """State carried across from the JAX package.
 
-The port runs no model, so its "weights" are the Poseidon2 constant tables
-and the digest-layer stacks that a slot build produces.  Both cross as
-numpy arrays of 16-bit limb planes (the JAX package's uint32 layout) and
-become the port's int32 planes.
+The port runs no model, so its "weights" are the hash constant tables and
+the digest-layer stacks that a slot build produces: BN254 Poseidon2 tables
+and (16, W) layers, Goldilocks tables and (4, 4, W) digest layers.  Both
+cross as numpy arrays of 16-bit limb planes (the JAX package's uint32
+layout) and become the port's int32 planes.
 """
 
 from __future__ import annotations
@@ -46,15 +47,37 @@ def tables_from_numpy(ext_rc, int_rc, keys, iv2, one) -> dict[str, torch.Tensor]
 
 
 def layers_from_numpy(layers, device=None) -> list[torch.Tensor]:
-    """list of (16, W) uint32 limb-plane arrays -> int32 tensors on device."""
+    """list of (16, W) BN254 or (4, 4, W) Goldilocks uint32 limb-plane
+    arrays -> int32 tensors on device."""
     out = []
     for lyr in layers:
-        if np.ndim(lyr) != 2 or np.shape(lyr)[0] != 16:
-            raise ValueError(f"layer shape {np.shape(lyr)} is not (16, W)")
+        if np.shape(lyr)[:-1] not in ((16,), (4, 4)):
+            raise ValueError(f"layer shape {np.shape(lyr)} is not (16, W) or (4, 4, W)")
         out.append(_planes(lyr, device))
     return out
 
 
 def layers_to_numpy(layers) -> list[np.ndarray]:
-    """list of (16, W) int32 tensors -> uint32 limb-plane arrays."""
+    """list of (16, W) or (4, 4, W) int32 tensors -> uint32 limb-plane arrays."""
     return [lyr.detach().cpu().numpy().astype(np.uint32) for lyr in layers]
+
+
+def gl_tables_from_numpy(rc_table) -> dict[str, torch.Tensor]:
+    """The JAX Goldilocks kernel's (48, 128) constant table
+    (ops/goldilocks_pallas.py RC_TABLE: row = limb * 12 + lane; columns
+    0..7 external round constants, 8 the internal diagonal mu - 1, 16..37
+    internal round constants, 40 the sponge IV, 44..47 the Merkle keys,
+    48..53 the Monolith round constants; single values in lane 0) -> the
+    port's tables, laid out as ops/goldilocks_plain.py TABLES."""
+    t = _planes(rc_table)
+    if tuple(t.shape) != (48, 128):
+        raise ValueError(f"rc_table: shape {tuple(t.shape)} != (48, 128)")
+    t = t.reshape(4, 12, 128).permute(2, 1, 0)  # (column, lane, limb)
+    return {
+        "ext_rc": t[0:8].contiguous(),
+        "int_rc": t[16:38, 0].contiguous(),
+        "diag": t[8].contiguous(),
+        "iv": t[40, 0].contiguous(),
+        "keys": t[44:48, 0].contiguous(),
+        "mono_rc": t[48:54].contiguous(),
+    }

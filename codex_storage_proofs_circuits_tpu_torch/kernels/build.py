@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of csrc/ (nvcc + ctypes).
 
-At first use, the csrc/*.cu sources and a constants header generated from
-fields/bn254.py are compiled by nvcc for sm_90a into one shared library with
-a plain C interface, under build/torch_kernels/<hash>/ at the root of the
-checkout (a directory .gitignore lists).  The hash covers the sources, the
-header and the flags, so a changed source builds anew.  The library is
+At first use, the csrc/*.cu sources and two constants headers generated
+from fields/bn254.py and fields/goldilocks.py are compiled by nvcc for
+sm_90a, one nvcc per source, all started together, and linked into one
+shared library with a plain C interface, under build/torch_kernels/<hash>/
+at the root of the checkout (a directory .gitignore lists).  The hash covers
+the sources, the headers and the flags, so a changed source builds anew.  The library is
 loaded with ctypes: every pointer and the stream cross as c_void_p, sizes as
 c_int or c_longlong.  Each C entry point returns cudaGetLastError() after
 its launch, and `check` raises if that is not 0.
@@ -24,7 +25,9 @@ import threading
 
 import torch
 
-from codex_storage_proofs_circuits_tpu.fields import bn254
+from ..fields import bn254
+from ..fields import goldilocks as G
+from ..fields.gl_tables import SPONGE_IV, external_matrix
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -32,12 +35,16 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_NAME = "libcspc_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 NVCC_TIMEOUT_S = 900
 
-# Launch counts of the kernels: K1 "perm", K2 "sponge2", K3 "prng".
-LAUNCHES = {"perm": 0, "sponge2": 0, "prng": 0}
+# Launch counts of the kernels: K1 "perm", K2 "sponge2", K3 "prng",
+# K4 "gl_perm", K5 "mono_perm", K6 "gl_sponge8" / "mono_sponge8".
+LAUNCHES = {
+    "perm": 0, "sponge2": 0, "prng": 0,
+    "gl_perm": 0, "mono_perm": 0, "gl_sponge8": 0, "mono_sponge8": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -50,6 +57,10 @@ _SIGNATURES = {
     "cspc_p2_sponge2": [_VP, _I, _VP, _LL, _I, _VP],
     # seed1_base, seed2_base, out, n_steps, n, device, stream
     "cspc_fake_prng_rows": [_VP, _VP, _VP, _I, _LL, _I, _VP],
+    # hash, x, xls, xks, xcs, y, yls, yks, ycs, key, out, out_lanes, n, device, stream
+    "cspc_gl_perm": [_I, _VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _VP, _I, _LL, _I, _VP],
+    # hash, felts, fs, ks, cs, nf, out, n, device, stream
+    "cspc_gl_sponge8": [_I, _VP, _LL, _LL, _LL, _I, _VP, _LL, _I, _VP],
 }
 
 
@@ -89,6 +100,58 @@ def constants_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def _matrix(m) -> str:
+    return "{" + ", ".join("{" + ", ".join(f"{v}u" for v in row) + "}" for row in m) + "}"
+
+
+def gl_constants_header() -> str:
+    """The Goldilocks tables of fields/goldilocks.py as a CUDA header: the
+    Poseidon2-GL round constants, internal diagonal (mu_i - 1) and external
+    matrix, the Monolith round constants and Concrete matrix, the sponge IV.
+    The two matrices are initializers of small integers for local constexpr
+    arrays, so the unrolled rounds fold them into immediates."""
+    for m in (external_matrix(), G.MONOLITH_CONCRETE):
+        if any(v < 0 for row in m for v in row) or max(sum(row) for row in m) >= 1 << 20:
+            raise ValueError("a Goldilocks linear layer is not a small non-negative matrix")
+
+    def u64(v: int) -> str:
+        return f"0x{v:016x}ULL"
+
+    def rows(table) -> str:
+        return "\n".join("  {" + ", ".join(u64(v) for v in row) + "}," for row in table)
+
+    return "\n".join([
+        "// generated by kernels/build.py from fields/goldilocks.py; do not edit",
+        "#pragma once",
+        "#include <cstdint>",
+        "",
+        f"#define GL_RATE {G.RATE}",
+        f"#define GL_P2_RF {G.RF}",
+        f"#define GL_P2_RP {G.RP}",
+        f"#define GL_MONO_ROUNDS {G.MONOLITH_ROUNDS}",
+        f"#define GL_MONO_BARS {G.MONOLITH_BARS}",
+        f"#define GL_SPONGE_IV {u64(SPONGE_IV)}",
+        f"#define GL_P2_EXT_MATRIX {_matrix(external_matrix())}",
+        f"#define GL_MONO_CONCRETE {_matrix(G.MONOLITH_CONCRETE)}",
+        f"static __constant__ uint64_t GL_P2_EXT_RC[{G.RF}][{G.T}] = {{",
+        rows(G.P2GL_EXTERNAL_RC),
+        "};",
+        f"static __constant__ uint64_t GL_P2_INT_RC[{G.RP}] = {{"
+        + ", ".join(u64(v) for v in G.P2GL_INTERNAL_RC) + "};",
+        f"static __constant__ uint64_t GL_P2_DIAG[{G.T}] = {{"
+        + ", ".join(u64((d - 1) % G.P_GL) for d in G.P2GL_INTERNAL_DIAG) + "};",
+        f"static __constant__ uint64_t GL_MONO_RC[{G.MONOLITH_ROUNDS}][{G.T}] = {{",
+        rows(G.MONOLITH_RC),
+        "};",
+    ]) + "\n"
+
+
+HEADERS = {
+    "poseidon2_bn254_constants.h": constants_header,
+    "goldilocks_constants.h": gl_constants_header,
+}
+
+
 def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.h")))
 
@@ -100,7 +163,9 @@ def build_dir() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(constants_header().encode())
+    for name, gen in HEADERS.items():
+        h.update(name.encode())
+        h.update(gen().encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
@@ -122,22 +187,57 @@ def _replace_atomically(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def _build(out_dir: str) -> None:
-    os.makedirs(out_dir, exist_ok=True)
-    _replace_atomically(
-        os.path.join(out_dir, "poseidon2_bn254_constants.h"), constants_header().encode()
-    )
-    tmp = os.path.join(out_dir, f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-o", tmp]
-    cmd += [s for s in _sources() if s.endswith(".cu")]
+def _run_all(cmds: list[list[str]], what: list[str]) -> list[str]:
+    """Run the commands in parallel; raise on the first that fails or times
+    out.  Returns each command's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s") from e
-    _replace_atomically(os.path.join(out_dir, "nvcc.log"), (r.stdout + r.stderr).encode())
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-6000:]}")
-    os.replace(tmp, os.path.join(out_dir, LIB_NAME))
+        for p, w in zip(procs, what):
+            try:
+                out, _ = p.communicate(timeout=NVCC_TIMEOUT_S)
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc did not finish {w} in {NVCC_TIMEOUT_S} s") from e
+            logs.append(f"== {w}\n{out}")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {w} ({p.returncode}):\n{out[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return logs
+
+
+def build_into(out_dir: str, parallel: bool = True) -> None:
+    """Build the library into out_dir: one nvcc per source, all started
+    together (parallel=False runs them one after another, for
+    kernels/time_build.py), then one link."""
+    os.makedirs(out_dir, exist_ok=True)
+    for name, gen in HEADERS.items():
+        _replace_atomically(os.path.join(out_dir, name), gen().encode())
+    tag = f"{os.getpid()}.tmp"
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(out_dir, os.path.basename(s) + f".{tag}.o") for s in srcs]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-c", s, "-o", o]
+            for s, o in zip(srcs, objs)]
+    names = [os.path.basename(s) for s in srcs]
+    try:
+        if parallel:
+            logs = _run_all(cmds, names)
+        else:
+            logs = [log for c, w in zip(cmds, names) for log in _run_all([c], [w])]
+        lib = os.path.join(out_dir, f"{LIB_NAME}.{tag}")
+        logs += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                           "-o", lib, *objs]], ["link"])
+        _replace_atomically(os.path.join(out_dir, "nvcc.log"), "\n".join(logs).encode())
+        os.replace(lib, os.path.join(out_dir, LIB_NAME))
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
 
 
 def load() -> ctypes.CDLL:
@@ -148,7 +248,7 @@ def load() -> ctypes.CDLL:
             out_dir = build_dir()
             so = os.path.join(out_dir, LIB_NAME)
             if not os.path.exists(so):
-                _build(out_dir)
+                build_into(out_dir)
             lib = ctypes.CDLL(so)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -13,15 +13,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.models import data as D
-from codex_storage_proofs_circuits_tpu.oracle.dataset import (
+from . import data as D
+from ..oracle.dataset import (
     DataSetConfig,
     GlobalConfig,
     slot_cfg_from_dataset_cfg,
 )
-from codex_storage_proofs_circuits_tpu.oracle.merkle import extract_proof, merkle_tree
-from codex_storage_proofs_circuits_tpu.oracle.sampling import ProofInput, sample_cell_indices
-from codex_storage_proofs_circuits_tpu.oracle.slot import cell_data_to_field_elements
+from ..oracle.merkle import extract_proof, merkle_tree
+from ..oracle.sampling import ProofInput, sample_cell_indices
+from ..oracle.slot import cell_data_to_field_elements
 
 from ..ops import limbs as L
 from . import hashing as H

@@ -14,10 +14,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.models import data as D
-from codex_storage_proofs_circuits_tpu.oracle.merkle import MerkleProof
-from codex_storage_proofs_circuits_tpu.oracle.poseidon2 import keyed_compression
-from codex_storage_proofs_circuits_tpu.oracle.slot import SlotConfig
+from . import data as D
+from ..oracle.merkle import MerkleProof
+from ..oracle.poseidon2 import keyed_compression
+from ..oracle.slot import SlotConfig
 
 from ..ops import limbs as L
 from ..ops.encode import encode_cells

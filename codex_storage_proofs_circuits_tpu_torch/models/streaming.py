@@ -1,18 +1,21 @@
-"""Streaming (chunked) slot-tree construction with bounded memory, BN254.
+"""Streaming (chunked) slot-tree construction with bounded memory, for
+BN254 and Goldilocks.
 
-Port of the BN254 half of codex_storage_proofs_circuits_tpu/models/
-streaming.py.  Cells stream through the device in chunks; each chunk is a
-complete, aligned subtree of the slot tree (the chunk size divides n_cells,
-both powers of two), so its digest layers are exact contiguous segments of
-the global layer stack.  The device keeps only digest layers (64 B per node
-as int32 limb planes, about twice the leaf count in all).
+Port of codex_storage_proofs_circuits_tpu/models/streaming.py.  Cells
+stream through the device in chunks; each chunk is a complete, aligned
+subtree of the slot tree (the chunk size divides n_cells, both powers of
+two), so its digest layers are exact contiguous segments of the global
+layer stack.  The device keeps only digest layers (64 B per node as int32
+limb planes, about twice the leaf count in all).
 
 A fake-data chunk is one pass on the device, with no cell bytes crossing
 from the host: seed bases (32 B) -> PRNG (kernel K3) -> byte pad + felt
-encode -> Montgomery form -> rate-2 sponge (K2) -> one compression per layer
-(K1).  File-backed data loads on the host and crosses per chunk.
+encode -> the cell hashes -> one compression launch per layer.  For BN254
+the felts go to Montgomery form and the hashes are K2 and K1; for
+Goldilocks the hashes are K6 and K4 (Poseidon2-GL) or K5 (Monolith).
+File-backed data loads on the host and crosses per chunk.
 
-Chunk-checkpoint resume and the Goldilocks half are not ported yet.
+Chunk-checkpoint resume is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.models import data as D
-from codex_storage_proofs_circuits_tpu.oracle.slot import SlotConfig
-
+from ..ops import gl_encode
 from ..ops import limbs as L
-from ..ops.encode import encode_cells, encode_rows
+from ..ops.encode import encode_rows
 from ..ops.fake_prng import fake_seed_bases, gen_rows
+from ..oracle.slot import SlotConfig
+from . import data as D
+from . import gl_hashing as GH
 from . import hashing as H
 
 # One thread per cell in the kernels: 2^16 cells fill the card's 132 SMs
@@ -54,19 +58,18 @@ class StreamingStats:
         return dict(self.__dict__)
 
 
-def _chunk_layers(cfg: SlotConfig, c: int, chunk_cells: int, btd: int, device, st):
+def _chunk_layers(cfg: SlotConfig, c: int, chunk_cells: int, device, st, encode, tree):
     t0 = time.perf_counter()
     if cfg.data_src.kind == "fake":
         s1, s2 = fake_seed_bases(cfg.data_src.seed, c * chunk_cells, device)
         rows = gen_rows(s1, s2, cfg.cell_size, chunk_cells)  # (cell_size, B) u8
-        t1 = time.perf_counter()
-        felts = encode_rows(rows)
     else:
         cells = D.load_cells(cfg, np.arange(c * chunk_cells, (c + 1) * chunk_cells))
-        t1 = time.perf_counter()
-        felts = encode_cells(torch.from_numpy(cells).to(device))
+        rows = torch.from_numpy(cells).to(device).T
+    t1 = time.perf_counter()
+    felts = encode(rows)
     t2 = time.perf_counter()
-    layers = H.slot_tree_from_felts(felts, btd)
+    layers = tree(felts)
     st.datagen_s += t1 - t0
     st.encode_s += t2 - t1
     st.device_s += time.perf_counter() - t2
@@ -75,18 +78,10 @@ def _chunk_layers(cfg: SlotConfig, c: int, chunk_cells: int, btd: int, device, s
     return layers
 
 
-def streaming_slot_layers(
-    cfg: SlotConfig,
-    chunk_cells: int = DEFAULT_CHUNK_CELLS,
-    stats: StreamingStats | None = None,
-    device="cuda",
-) -> list[torch.Tensor]:
-    """Full slot-tree layer stack (canonical int32 limb planes), in chunks.
-
-    Returns layers[d] of shape (NL, n_cells >> d): layers[0] the cell
-    hashes, layers[-1] the (NL, 1) slot root, identical to
-    H.slot_tree_from_felts over all cells at once.
-    """
+def _stream(cfg: SlotConfig, chunk_cells: int, stats, device, encode, tree, tops):
+    """The chunk loop shared by both fields.  encode: byte rows -> felts;
+    tree(felts, btd): a chunk's layers; tops(chunk roots, btd, chunk depth):
+    the layers above the chunks.  Layers concatenate on their last axis."""
     n_cells = cfg.n_cells
     btd = cfg.cells_per_block.bit_length() - 1
     chunk_cells = min(chunk_cells, n_cells)
@@ -100,21 +95,43 @@ def streaming_slot_layers(
 
     segments: list[list[torch.Tensor]] = [[] for _ in range(chunk_depth + 1)]
     for c in range(n_chunks):
-        for d, lyr in enumerate(_chunk_layers(cfg, c, chunk_cells, btd, device, st)):
+        layers = _chunk_layers(cfg, c, chunk_cells, device, st, encode,
+                               lambda felts: tree(felts, btd))
+        for d, lyr in enumerate(layers):
             segments[d].append(lyr)
 
     t0 = time.perf_counter()
-    out = [torch.cat(seg, dim=1) for seg in segments]
+    out = [torch.cat(seg, dim=-1) for seg in segments]
     if n_chunks > 1:
         # reduce the chunk roots; keys follow the global depth schedule
-        tops = H.tree_reduce_layers(
-            L.to_mont(out[-1]), bottom_depths=(0, btd), depth_offset=chunk_depth
-        )
-        out.extend(H.from_mont_layers(tops[1:]))
+        out.extend(tops(out[-1], btd, chunk_depth))
     if out[-1].device.type == "cuda":
         torch.cuda.synchronize(out[-1].device)
     st.finalize_s += time.perf_counter() - t0
     return out
+
+
+def streaming_slot_layers(
+    cfg: SlotConfig,
+    chunk_cells: int = DEFAULT_CHUNK_CELLS,
+    stats: StreamingStats | None = None,
+    device="cuda",
+) -> list[torch.Tensor]:
+    """Full BN254 slot-tree layer stack (canonical int32 limb planes), in
+    chunks.
+
+    Returns layers[d] of shape (NL, n_cells >> d): layers[0] the cell
+    hashes, layers[-1] the (NL, 1) slot root, identical to
+    H.slot_tree_from_felts over all cells at once.
+    """
+
+    def tops(roots, btd, chunk_depth):
+        layers = H.tree_reduce_layers(
+            L.to_mont(roots), bottom_depths=(0, btd), depth_offset=chunk_depth
+        )
+        return H.from_mont_layers(layers[1:])
+
+    return _stream(cfg, chunk_cells, stats, device, encode_rows, H.slot_tree_from_felts, tops)
 
 
 def streaming_slot_root(
@@ -123,5 +140,39 @@ def streaming_slot_root(
     stats: StreamingStats | None = None,
     device="cuda",
 ) -> int:
-    """Slot root only (python int), via the chunked build."""
+    """BN254 slot root only (python int), via the chunked build."""
     return L.unpack(streaming_slot_layers(cfg, chunk_cells, stats, device)[-1])[0]
+
+
+def streaming_slot_layers_gl(
+    cfg: SlotConfig,
+    hash_fun: str = "poseidon2",
+    chunk_cells: int = DEFAULT_CHUNK_CELLS,
+    stats: StreamingStats | None = None,
+    device="cuda",
+) -> list[torch.Tensor]:
+    """Goldilocks slot-tree digest layer stack (canonical), in chunks.
+
+    Returns layers[d] of shape (4, 4, n_cells >> d), identical to
+    GH.slot_tree_from_felts_gl over all cells at once.
+    """
+
+    def tree(felts, btd):
+        return GH.slot_tree_from_felts_gl(hash_fun, felts, btd)
+
+    def tops(roots, btd, chunk_depth):
+        return GH.gl_tree_reduce_layers(roots, hash_fun, (0, btd), depth_offset=chunk_depth)[1:]
+
+    return _stream(cfg, chunk_cells, stats, device, gl_encode.encode_rows, tree, tops)
+
+
+def streaming_slot_root_gl(
+    cfg: SlotConfig,
+    hash_fun: str = "poseidon2",
+    chunk_cells: int = DEFAULT_CHUNK_CELLS,
+    stats: StreamingStats | None = None,
+    device="cuda",
+) -> tuple[int, ...]:
+    """Goldilocks slot root (a Digest tuple of python ints), via the
+    chunked build."""
+    return GH.digests(streaming_slot_layers_gl(cfg, hash_fun, chunk_cells, stats, device)[-1])[0]

@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.oracle.slot import FAKE_MODULUS
+from ..oracle.slot import FAKE_MODULUS
 
 from ..kernels import build
 from .limbs import MASK, int_limbs

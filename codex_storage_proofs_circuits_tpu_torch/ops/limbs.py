@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.fields import bn254
+from ..fields import bn254
 
 NL = bn254.NUM_LIMBS  # 16
 LB = bn254.LIMB_BITS  # 16

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from codex_storage_proofs_circuits_tpu.fields import bn254
+from ..fields import bn254
 from .. import convert
 from . import limbs as L
 

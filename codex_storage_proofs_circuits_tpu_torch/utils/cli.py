@@ -2,12 +2,12 @@
 
 The flag surface and defaults of the JAX package's `cspc-tpu`
 (codex_storage_proofs_circuits_tpu/utils/cli.py, itself mirroring the
-reference cli.nim:80-105), for the BN254 track, with `--device` in place of
-`--backend`.  The default field is the reference's (goldilocks), which is
-not ported yet: pass --field=bn254.
+reference cli.nim:80-105), with `--device` in place of `--backend`.  Both
+fields: goldilocks (the reference's default) with `--hash=poseidon2` or
+`--hash=monolith`, and bn254 with Poseidon2.
 
 Example:
-    cspc-torch -v --field=bn254 --nslots=5 --ncells=256 --nsamples=5 \\
+    cspc-torch -v --nslots=5 --ncells=256 --nsamples=5 --hash=monolith \\
                --output=input.json --circom=proof_main.circom --check
 """
 
@@ -19,8 +19,8 @@ import time
 
 import torch
 
-from codex_storage_proofs_circuits_tpu.oracle.dataset import DataSetConfig, GlobalConfig
-from codex_storage_proofs_circuits_tpu.oracle.slot import DataSource
+from ..oracle.dataset import DataSetConfig, GlobalConfig
+from ..oracle.slot import DataSource
 
 # slots of at least this many bytes stream through the device in chunks
 STREAMING_SLOT_BYTES = 1 << 26
@@ -75,15 +75,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="circom main component to create with these parameters")
     p.add_argument("-F", "--field", type=str, default="goldilocks",
                    choices=["bn254", "goldilocks"],
-                   help="the underlying field (the reference's default, goldilocks, "
-                        "is not ported yet)")
+                   help="the underlying field")
     p.add_argument("-H", "--hash", type=str, default="poseidon2",
                    choices=["poseidon2", "monolith"],
                    help="the hash function to use")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the computation (cuda, cuda:N or cpu)")
     p.add_argument("--check", action="store_true",
-                   help="after generation, evaluate the circuit's witness on the proof input")
+                   help="after generation, check the proof input against the circuit's "
+                        "semantics (bn254: the witness evaluator; goldilocks: "
+                        "check_proof_input_gl)")
     return p
 
 
@@ -122,27 +123,42 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _streams(glob, dset) -> bool:
+    """Slots of STREAMING_SLOT_BYTES or more with more than one block
+    stream through the device in chunks; small ones batch every slot."""
+    slot_bytes = glob.cell_size * dset.n_cells
+    return slot_bytes >= STREAMING_SLOT_BYTES and dset.n_cells > glob.cells_per_block
+
+
 def generate(glob, dset, slot_index: int, entropy: int, device, verbose: bool = False):
-    """The proof input on `device`: large slots stream through the device in
-    chunks, small ones batch every slot's cells in one build."""
+    """The BN254 proof input on `device`."""
     from ..models import proof_input as PI
 
-    slot_bytes = glob.cell_size * dset.n_cells
-    if slot_bytes >= STREAMING_SLOT_BYTES and dset.n_cells > glob.cells_per_block:
+    if _streams(glob, dset):
         if verbose:
-            print(f"streaming build ({slot_bytes >> 20} MB/slot)")
-        return PI.generate_proof_input_streaming(
-            glob, dset, slot_index, entropy, device=device
-        )
+            print(f"streaming build ({glob.cell_size * dset.n_cells >> 20} MB/slot)")
+        return PI.generate_proof_input_streaming(glob, dset, slot_index, entropy, device=device)
     return PI.generate_proof_input(glob, dset, slot_index, entropy, device=device)
+
+
+def generate_gl(hash_fun: str, glob, dset, slot_index: int, entropy: int, device,
+                verbose: bool = False):
+    """The Goldilocks proof input on `device` (entropy as intToDigest)."""
+    from ..models import gl_proof_input as GPI
+    from ..oracle.goldilocks import int_to_digest
+
+    args = (hash_fun, glob, dset, slot_index, int_to_digest(entropy))
+    if _streams(glob, dset):
+        if verbose:
+            print(f"streaming build ({glob.cell_size * dset.n_cells >> 20} MB/slot)")
+        return GPI.generate_proof_input_gl_streaming(*args, device=device)
+    return GPI.generate_proof_input_gl(*args, device=device)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.field == "goldilocks":
-        raise SystemExit("--field=goldilocks: not yet ported (use --field=bn254)")
-    if args.hash != "poseidon2":
+    if args.field == "bn254" and args.hash != "poseidon2":
         raise SystemExit(f"hash `{args.hash}` is not available over bn254")
     if not (0 <= args.index < args.nslots):
         raise SystemExit(
@@ -171,28 +187,36 @@ def main(argv=None) -> int:
         return 0
 
     if args.circom is not None:
-        from codex_storage_proofs_circuits_tpu.utils.circom import write_circom_main_component
+        from ..utils.circom import write_circom_main_component
 
         print(f"writing circom main component into `{args.circom}`")
         write_circom_main_component(args.circom, glob, dset)
 
     if args.output is not None:
-        from codex_storage_proofs_circuits_tpu.utils.json_export import export_proof_input
-
         print(f"writing proof input into `{args.output}`...")
         t0 = time.time()
-        pi = generate(glob, dset, args.index, args.entropy, device, args.verbose)
-        export_proof_input(args.output, pi)
-        if args.verbose:
-            print(f"generated in {time.time() - t0:.3f}s")
-        if args.check:
-            from codex_storage_proofs_circuits_tpu.models.witness import (
-                evaluate_witness,
-                generate_witness,
-            )
+        if args.field == "goldilocks":
+            from ..oracle.goldilocks_pipeline import check_proof_input_gl, export_proof_input_gl
 
-            evaluate_witness(glob, pi, generate_witness(glob, pi))
-            print("witness check: OK")
+            pi = generate_gl(args.hash, glob, dset, args.index, args.entropy, device,
+                             args.verbose)
+            export_proof_input_gl(args.output, pi)
+            if args.verbose:
+                print(f"generated in {time.time() - t0:.3f}s")
+            if args.check:
+                check_proof_input_gl(args.hash, glob, pi)
+                print("circuit semantics check: OK")
+        else:
+            from ..models.witness import evaluate_witness, generate_witness
+            from ..utils.json_export import export_proof_input
+
+            pi = generate(glob, dset, args.index, args.entropy, device, args.verbose)
+            export_proof_input(args.output, pi)
+            if args.verbose:
+                print(f"generated in {time.time() - t0:.3f}s")
+            if args.check:
+                evaluate_witness(glob, pi, generate_witness(glob, pi))
+                print("witness check: OK")
 
     print("done")
     return 0

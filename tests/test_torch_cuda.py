@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3 against their plain torch versions, and the
-slice on the card against the oracle, bit-exact.
+"""The CUDA kernels K1-K6 against their plain torch versions, and the
+slices on the card against the oracle, bit-exact.
 
 Every test here needs a CUDA device (and nvcc) and skips without one.  The
 file imports no jax, so it also runs on a machine with the card and no jax:
@@ -11,13 +11,20 @@ import numpy as np
 import pytest
 import torch
 
-from codex_storage_proofs_circuits_tpu.fields import bn254 as F
-from codex_storage_proofs_circuits_tpu.oracle.dataset import DataSetConfig, GlobalConfig
-from codex_storage_proofs_circuits_tpu.oracle.sampling import generate_proof_input as oracle_pi
-from codex_storage_proofs_circuits_tpu.oracle.slot import DataSource, gen_fake_cell
+from codex_storage_proofs_circuits_tpu_torch.fields import bn254 as F
+from codex_storage_proofs_circuits_tpu_torch.oracle import goldilocks as GO
+from codex_storage_proofs_circuits_tpu_torch.oracle.dataset import DataSetConfig, GlobalConfig
+from codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline import (
+    generate_proof_input_gl as oracle_pi_gl,
+)
+from codex_storage_proofs_circuits_tpu_torch.oracle.sampling import generate_proof_input as oracle_pi
+from codex_storage_proofs_circuits_tpu_torch.oracle.slot import DataSource, gen_fake_cell
 from codex_storage_proofs_circuits_tpu_torch.kernels import build
+from codex_storage_proofs_circuits_tpu_torch.models import gl_proof_input as TGPI
 from codex_storage_proofs_circuits_tpu_torch.models import proof_input as TPI
 from codex_storage_proofs_circuits_tpu_torch.ops import fake_prng as TF
+from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_cuda as TGC
+from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_plain as TGP
 from codex_storage_proofs_circuits_tpu_torch.ops import limbs as TL
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_cuda as TC
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_plain as TP
@@ -79,4 +86,55 @@ def test_slice_on_cuda_matches_oracle(cuda):
     want = oracle_pi(glob, dset, 1, 7)
     assert TPI.generate_proof_input(glob, dset, 1, 7, device=cuda) == want
     got = TPI.generate_proof_input_streaming(glob, dset, 1, 7, chunk_cells=8, device=cuda)
+    assert got == want
+
+
+def _gl_planes(rng, shape):
+    """Random (..., 4, B) limb planes of values below 2^64 (not all < p)."""
+    return torch.from_numpy(rng.integers(0, 1 << 16, size=shape, dtype=np.int32))
+
+
+@pytest.mark.parametrize("hash_fun", ["poseidon2", "monolith"])
+def test_gl_permutation_and_compress_match_plain(cuda, hash_fun):
+    rng = np.random.default_rng(43)
+    counter = {"poseidon2": "gl_perm", "monolith": "mono_perm"}[hash_fun]
+    before = build.LAUNCHES[counter]
+    state = _gl_planes(rng, (12, 4, 257))
+    assert torch.equal(TGC.permutation(state.to(cuda), hash_fun).cpu(),
+                       TGP.permutation(state, hash_fun))
+    layer = _gl_planes(rng, (4, 4, 256))
+    for key in range(4):
+        got = TGC.compress(layer.to(cuda)[:, :, 0::2], layer.to(cuda)[:, :, 1::2], key, hash_fun)
+        want = TGP.compress_batch(hash_fun, key, layer[:, :, 0::2], layer[:, :, 1::2])
+        assert torch.equal(got.cpu(), want)
+    assert build.LAUNCHES[counter] == before + 5
+    kat = torch.stack([TGP.pack([v], cuda) for v in range(12)])
+    out = TGC.permutation(kat, hash_fun)
+    assert [TGP.unpack(out[i])[0] for i in range(12)] == GO.PERMUTATIONS[hash_fun](list(range(12)))
+    with pytest.raises(ValueError):  # odd width: the halves differ
+        TGC.compress(state[:4].to(cuda)[:, :, 0::2], state[:4].to(cuda)[:, :, 1::2], 0, hash_fun)
+
+
+@pytest.mark.parametrize("hash_fun", ["poseidon2", "monolith"])
+def test_gl_sponge_matches_plain(cuda, hash_fun):
+    rng = np.random.default_rng(44)
+    counter = {"poseidon2": "gl_sponge8", "monolith": "mono_sponge8"}[hash_fun]
+    before = build.LAUNCHES[counter]
+    for n in (1, 7, 8, 15, 16, 272):
+        felts = _gl_planes(rng, (n, 4, 130))
+        got = TGC.sponge_digest_felts(felts.to(cuda), hash_fun)
+        assert torch.equal(got.cpu(), TGP.sponge_digest_felts(hash_fun, felts))
+    assert build.LAUNCHES[counter] == before + 6
+
+
+@pytest.mark.parametrize("hash_fun", ["poseidon2", "monolith"])
+def test_gl_slice_on_cuda_matches_oracle(cuda, hash_fun):
+    glob = GlobalConfig(max_depth=16, max_log2_n_slots=4, cell_size=64, block_size=256)
+    dset = DataSetConfig(n_slots=3, n_cells=32, n_samples=4,
+                         data_src=DataSource("fake", seed=5))
+    entropy = GO.int_to_digest(7)
+    want = oracle_pi_gl(hash_fun, glob, dset, 1, entropy)
+    assert TGPI.generate_proof_input_gl(hash_fun, glob, dset, 1, entropy, device=cuda) == want
+    got = TGPI.generate_proof_input_gl_streaming(hash_fun, glob, dset, 1, entropy,
+                                                 chunk_cells=8, device=cuda)
     assert got == want

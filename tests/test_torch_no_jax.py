@@ -1,6 +1,8 @@
-"""The port imports no jax: every module of the port package, and
-chip_smoke.py, load in a fresh interpreter with jax absent from sys.modules
-(the machine with the GPU has no jax)."""
+"""The port imports neither jax nor the JAX package: every module of the port
+package, and chip_smoke.py, load in a fresh interpreter with jax and every
+module of codex_storage_proofs_circuits_tpu absent from sys.modules (the
+machine with the GPU has no jax, and the port keeps its own copies of the
+JAX package's jax-free modules)."""
 
 import os
 import pkgutil
@@ -21,7 +23,10 @@ def _port_modules() -> list[str]:
 def test_port_modules_are_found():
     mods = _port_modules()
     for name in ("ops.limbs", "ops.poseidon2_cuda", "ops.fake_prng", "kernels.build",
-                 "models.streaming", "models.proof_input", "utils.cli", "convert"):
+                 "models.streaming", "models.proof_input", "utils.cli", "convert",
+                 "ops.goldilocks_plain", "ops.goldilocks_cuda", "ops.gl_encode",
+                 "models.gl_hashing", "models.gl_proof_input", "fields.goldilocks",
+                 "fields.gl_tables", "oracle.goldilocks_pipeline"):
         assert f"{port.__name__}.{name}" in mods
 
 
@@ -32,6 +37,9 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "jax_pkg = 'codex_storage_proofs_circuits_tpu'\n"
+        "bad = sorted(m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + '.'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
