@@ -7,11 +7,19 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases:
   1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
-  2. build: nvcc builds the kernels of csrc/ (build seconds, ptxas report);
+  2. build: nvcc builds the kernels of csrc/ (build seconds, ptxas report),
+     and the static instruction mix of the K2 and K6 byte-row kernels
+     (cuobjdump -sass): the share of integer multiplies;
   3. each kernel (K1-K6) against its plain torch version on the card,
-     bitwise, at the shapes the main paths give it (one 2^16-cell chunk of
-     2048-byte cells and one layer of its tree), with the times of both and
-     the least time the card could take for the same work (bound_ms);
+     bitwise, at the shapes the main paths give it (one chunk of 2^18
+     cells of 2048 bytes and one layer of its tree), with the times of both
+     and the least time the card could take for the same work (bound_ms;
+     a kernel's time is its device time per launch, kernels/timing.py).  K2
+     and K6 (both cores) are held on their byte-row entries, which the main
+     paths run, and on their limb-plane entries (the JAX parity API), with
+     the time of the path the byte-row entries replace: the plain byte
+     encode (and for BN254 the Montgomery form and felt padding), then the
+     limb-plane kernel;
   4. BN254: the port CLI on a small dataset (5 slots x 256 cells), which
      must equal the pure-Python oracle exactly;
   5. BN254: the port CLI on two 1 GB fake-data slots (2^19 cells of 2048
@@ -28,7 +36,8 @@ Phases:
 
 Each main path (phase 5, and phase 7 once per hash) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
-that path must have launched, and no kernel of another path.
+that path must have launched, and no other kernel, nor the limb-plane
+entries of K2 and K6 (counted apart from their byte-row entries).
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Any failed check raises: the exit code is then non-zero and there is no
@@ -39,6 +48,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -68,7 +79,7 @@ from codex_storage_proofs_circuits_tpu_torch.oracle.slot import (
 )
 from codex_storage_proofs_circuits_tpu_torch.utils.json_export import load_proof_input
 from codex_storage_proofs_circuits_tpu_torch.kernels import build
-from codex_storage_proofs_circuits_tpu_torch.models import hashing as H
+from codex_storage_proofs_circuits_tpu_torch.kernels.timing import device_ms, events_ms
 from codex_storage_proofs_circuits_tpu_torch.models import streaming as S
 from codex_storage_proofs_circuits_tpu_torch.ops import encode as E
 from codex_storage_proofs_circuits_tpu_torch.ops import fake_prng as F
@@ -109,48 +120,39 @@ MEM_BYTES_PER_S = 3.35e12
 SMS, IMAD_PER_CLOCK = 132, 64
 SM_CLOCK_HZ = 0.0
 
-# 32-bit integer multiply instructions per unit of work, counted by hand
-# from the sources: a 32 x 32 -> 64 product counts 2 (low and high half), a
-# 32 x 32 -> 32 product 1.  Multiplies by the small constants of the linear
-# layers are left out, so the count is a lower bound.
-#   BN254 (K1, K2), per permutation: 240 Montgomery products (x^5 is 3, on
-#     3 lanes in 8 external rounds and 1 lane in 56 internal), each 8 x (8 + 8)
-#     wide products and 8 low ones: 240 * 264.
+# 32-bit integer multiply instructions, counted by hand from the sources as
+# the kernels issue them: each mul.lo / mul.hi / mad.lo / mad.hi counts 1
+# (a 32 x 32 -> 64 product is 2).  Multiplies by the small constants of the
+# linear layers (Monolith's Concrete) are left out, so each count is a
+# lower bound; the Poseidon2 linear layers have none.
+#   BN254 (csrc/poseidon2_bn254.cu): a Montgomery product is 8 steps of
+#     8 + 8 (a * b_i), 1 (the quotient) and 8 + 8 (m * P): 264; a squaring
+#     28 + 28 cross products, 8 + 8 squares and 8 reduction steps of
+#     1 + 8 + 8: 208; x^5 two squarings and a product: 680; a permutation 80
+#     S-boxes (3 in each of 8 external rounds, 1 in each of 56 internal).
+#     K2 from byte rows adds one product (by R^2 mod P) per felt.
 #   K3, per byte: two 64 x 64 -> 64 products (4 each), one 64 x 64 -> high 64
 #     by the modulus' reciprocal (8) and the quotient times the modulus (4).
-#   Goldilocks, per permutation: a modular product is 64 x 64 -> 128, 4 wide
-#     products (8).  Poseidon2-GL: 8 x 12 x^7 (4 products each) in the
+#   Goldilocks (csrc/goldilocks.cu), per permutation: a modular product is 4
+#     wide products (8).  Poseidon2-GL: 8 x 12 x^7 (4 products each) in the
 #     external rounds, 22 x (4 + 12) in the internal ones = 736 products.
 #     Monolith: 6 rounds x 11 squares in Bricks = 66 products.
-MUL_OPS = {
-    "perm": 240 * 264, "sponge2": 240 * 264, "prng": 20,
-    "gl_perm": 736 * 8, "gl_sponge8": 736 * 8,
-    "mono_perm": 66 * 8, "mono_sponge8": 66 * 8,
-}
+BN254_MUL, BN254_SQR = 264, 208
+BN254_PERM = 80 * (2 * BN254_SQR + BN254_MUL)
+PRNG_BYTE = 20
+GL_PERM = {"poseidon2": 736 * 8, "monolith": 66 * 8}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls, by CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(name: str, n_bytes: int, units: int) -> dict:
+def bound(n_bytes: int, muls: int) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the memory rate
     and the multiply instructions over the integer multiply rate."""
     mem_ms = n_bytes / MEM_BYTES_PER_S * 1e3
-    op_ms = units * MUL_OPS[name] / (SMS * IMAD_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    op_ms = muls / (SMS * IMAD_PER_CLOCK * SM_CLOCK_HZ) * 1e3
     return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
 
 
@@ -160,7 +162,8 @@ def nbytes(*ts: torch.Tensor) -> int:
 
 def compare(name: str, kernel, plain, reps: int, results: dict, work=None) -> None:
     """Kernel against plain version on the same inputs: bitwise equal, both
-    timed.  work = (bytes, units of MUL_OPS) of one kernel call, for its
+    timed (the kernel by its device time per launch, kernels/timing.py).
+    work = (bytes, multiply instructions) of one kernel call, for its
     bound; the last call compared under a name is the one reported."""
     got = kernel()
     torch.cuda.synchronize()
@@ -170,9 +173,9 @@ def compare(name: str, kernel, plain, reps: int, results: dict, work=None) -> No
         nonlocal want
         want = plain()
 
-    plain_ms = cuda_ms(run_plain, 1)  # one run: the plain versions take seconds
+    plain_ms = events_ms(run_plain, 1, warmup=False)  # the plain versions take seconds
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-    ms = cuda_ms(kernel, reps)
+    ms = device_ms(kernel, reps)
     log(f"  {name}: shape {tuple(got.shape)} max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.1f} ms")
     if got.shape != want.shape or err != 0:
         raise AssertionError(f"{name}: kernel and plain version disagree")
@@ -180,8 +183,9 @@ def compare(name: str, kernel, plain, reps: int, results: dict, work=None) -> No
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r.update(ms=ms, plain_ms=plain_ms, library_ms=None)
     if work is not None:
-        r.update(bound(name, *work))
-        log(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        r.update(bound(*work))
+        log(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+            f" ({100 * r['bound_ms'] / ms:.1f} % of it)")
 
 
 def random_canonical(rng, shape) -> torch.Tensor:
@@ -212,7 +216,7 @@ def phase_kernels(results: dict) -> None:
         lambda: P2.compress(layer[:, 0::2], layer[:, 1::2], P2.KEY_MONT[1]),
         20,
         results,
-        (nbytes(layer) + nbytes(layer[:, 0::2]), CHUNK // 2),
+        (nbytes(layer) + nbytes(layer[:, 0::2]), CHUNK // 2 * BN254_PERM),
     )
 
     # K3: one main-path chunk of fake cells, and a few cells against the
@@ -224,7 +228,7 @@ def phase_kernels(results: dict) -> None:
         lambda: F.gen_rows_plain(*F.seed_planes(s1, s2, CHUNK), CELL),
         20,
         results,
-        (nbytes(s1, s2) + CELL * CHUNK, CELL * CHUNK),
+        (nbytes(s1, s2) + CELL * CHUNK, CELL * CHUNK * PRNG_BYTE),
     )
     rows = F.gen_rows(s1, s2, CELL, CHUNK)
     host = gen_fake_cells(CELL, SEED, np.arange(8))
@@ -232,21 +236,33 @@ def phase_kernels(results: dict) -> None:
         raise AssertionError("K3 disagrees with models.data.gen_fake_cells")
     log("  prng: first 8 cells equal models.data.gen_fake_cells")
 
-    # K2: the sponge over that chunk's encoded cells (34 blocks of 2 felts)
-    blocks = P2.pad_felts_rate2(H.to_mont_stack(E.encode_rows(rows)))
-    compare(
-        "sponge2",
-        lambda: P2C.sponge2_absorb(blocks),
-        lambda: P2.sponge2_absorb(blocks),
-        3,
-        results,
-        (nbytes(blocks) + 16 * 4 * CHUNK, blocks.shape[0] * CHUNK),
-    )
+    # K2 over that chunk: the limb-plane entry on the padded Montgomery
+    # blocks of its cells (34 blocks of 2 felts), the path it replaces
+    # (plain encode, Montgomery form and felt padding, then the limb-plane
+    # kernel), and last the byte-row entry of the main path on the rows
+    # themselves (67 felts into Montgomery form, 34 permutations)
+    def unfused_sponge2():
+        return P2C.sponge2_absorb(P2.pad_felts_rate2(P2.to_mont_stack(E.encode_rows(rows))))
+
+    blocks = P2.pad_felts_rate2(P2.to_mont_stack(E.encode_rows(rows)))
+    nb, nf = blocks.shape[0], E.n_chunks(CELL)
+    compare("sponge2:planes", lambda: P2C.sponge2_absorb(blocks),
+            lambda: P2.sponge2_absorb(blocks), 3, results,
+            (nbytes(blocks) + 16 * 4 * CHUNK, CHUNK * nb * BN254_PERM))
+    unfused_ms = events_ms(unfused_sponge2, 3)
+    log(f"    the path the byte-row entry replaces: {unfused_ms:.4f} ms")
+    results["sponge2:planes"]["unfused_ms"] = unfused_ms
+    compare("sponge2", lambda: P2C.sponge2_rows(rows), lambda: P2.sponge2_rows(rows), 3, results,
+            (nbytes(rows) + 16 * 4 * CHUNK, CHUNK * (nb * BN254_PERM + nf * BN254_MUL)))
 
     # K4 / K5: the KAT state [0..11] against the oracle, random states, and
     # the key-1 compression of one main-path layer (2^16 -> 2^15 digests);
-    # K6 with each core over the chunk's encoded cells (272 felts a cell)
+    # K6 with each core over the chunk's encoded cells (272 felts a cell),
+    # the path its byte-row entry replaces (plain encode, then the felt
+    # kernel), and last the byte-row entry over the rows (34 chunks, then the
+    # padding block: 35 permutations)
     felts = GE.encode_rows(rows)
+    nch = GE.n_chunks(CELL)
     digests = torch.from_numpy(rng.integers(0, 1 << 16, (4, 4, CHUNK), dtype=np.int32)).cuda()
     kat = torch.stack([GP.pack([v], dev) for v in range(12)])
     for hash_fun in HASHES:
@@ -262,12 +278,54 @@ def phase_kernels(results: dict) -> None:
         x, y = digests[:, :, 0::2], digests[:, :, 1::2]
         compare(perm, lambda: GC.compress(x, y, 1, hash_fun),
                 lambda: GP.compress_batch(hash_fun, 1, x, y), 20, results,
-                (nbytes(digests) + nbytes(x), CHUNK // 2))
-        compare(sponge, lambda: GC.sponge_digest_felts(felts, hash_fun),
+                (nbytes(digests) + nbytes(x), CHUNK // 2 * GL_PERM[hash_fun]))
+        compare(f"{sponge}:planes", lambda: GC.sponge_digest_felts(felts, hash_fun),
                 lambda: GP.sponge_digest_felts(hash_fun, felts), 3, results,
-                (nbytes(felts) + 16 * 4 * CHUNK, (felts.shape[0] + 8) // 8 * CHUNK))
+                (nbytes(felts) + 16 * 4 * CHUNK, CHUNK * (nch + 1) * GL_PERM[hash_fun]))
+        unfused_ms = events_ms(lambda: GC.sponge_digest_felts(GE.encode_rows(rows), hash_fun), 3)
+        log(f"    the path the byte-row entry replaces: {unfused_ms:.4f} ms")
+        results[f"{sponge}:planes"]["unfused_ms"] = unfused_ms
+        compare(sponge, lambda: GC.sponge_digest_rows(rows, hash_fun),
+                lambda: GP.sponge_digest_rows(hash_fun, rows), 3, results,
+                (nbytes(rows) + 16 * 4 * CHUNK, CHUNK * (nch + 1) * GL_PERM[hash_fun]))
     log(f"  (GL widths: states 4096, compress {CHUNK} -> {CHUNK // 2}, sponge {CHUNK} cells"
-        f" of {felts.shape[0]} felts)")
+        f" of {CELL} bytes, {felts.shape[0]} felts)")
+
+
+def sass_mix() -> None:
+    """The static instruction mix of the K2 and K6 byte-row kernels
+    (cuobjdump -sass of the built library):
+    all instructions, the integer multiplies among them (IMAD and its forms,
+    without IMAD.MOV, IMAD.IADD and IMAD.SHL, which are moves, adds and
+    shifts issued on the multiply pipe) and the most frequent opcodes.  The
+    round loops are rolled and the S-box is a called function, which the
+    dump lists inside each kernel's body, so the body's mix is close to
+    what the kernel issues."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    lib = os.path.join(build.build_dir(), build.LIB_NAME)
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "p2_sponge2_kernel" in name and "ByteRows" in name:
+            label = "K2 sponge2 rows (kernel body)"
+        elif "gl_sponge8_kernel" in name and "ByteRows" in name:
+            core = "monolith" if "ILi1E" in name else "poseidon2"
+            label = f"K6 sponge8 rows, {core} core (kernel body)"
+        else:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
+        muls = [o for o in ops if o.startswith("IMAD")
+                and not o.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL"))]
+        fma_pipe = [o for o in ops if o.startswith("IMAD")]
+        top: dict = {}
+        for o in ops:
+            top[o] = top.get(o, 0) + 1
+        most = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+        log(f"  {label}: {len(ops)} instructions, integer multiplies {len(muls)}"
+            f" ({100 * len(muls) / max(1, len(ops)):.1f} %), all IMAD forms {len(fma_pipe)}"
+            f" ({100 * len(fma_pipe) / max(1, len(ops)):.1f} %), most frequent {json.dumps(most)}")
 
 
 def phase_small(tmp: str) -> None:
@@ -294,14 +352,14 @@ def reset_launches() -> None:
 
 def check_launches(path: str) -> dict:
     """The counts since reset_launches(): every kernel of the path launched,
-    no kernel of another path."""
+    and nothing else (no kernel of another path, no limb-plane entry)."""
     launches = dict(build.LAUNCHES)
     missing = [k for k in PATH_COUNTERS[path] if launches[k] < 1]
     if missing:
         raise AssertionError(f"{path}: kernels of the main path were not launched: {missing}")
     stray = [k for k, n in launches.items() if n and k not in PATH_COUNTERS[path]]
     if stray:
-        raise AssertionError(f"{path}: kernels of another path were launched: {stray}")
+        raise AssertionError(f"{path}: kernels off the main path were launched: {stray}")
     return launches
 
 
@@ -442,7 +500,7 @@ def profile_root(fn) -> dict:
         if "p2_perm_kernel" in name:
             return "K1 perm"
         if "p2_sponge2_kernel" in name:
-            return "K2 sponge2"
+            return "K2 sponge2"  # the byte-row entry on the main path
         if "fake_prng_rows_kernel" in name:
             return "K3 fake_prng"
         if "gl_sponge8_kernel" in name:
@@ -553,6 +611,7 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  " + line.strip())
+    sass_mix()
 
     log("[3] kernels against their plain versions")
     results: dict = {}
@@ -569,6 +628,10 @@ def main() -> int:
         for hash_fun in HASHES:
             launches[hash_fun] = phase_full_gl(tmp, hash_fun)
 
+    for key in ("sponge2:planes", "gl_sponge8:planes", "mono_sponge8:planes"):
+        r = results[key]
+        log(f"  {key}: kernel {r['ms']:.4f} ms, with the plain passes before it"
+            f" {r['unfused_ms']:.4f} ms; byte-row entry {results[key.split(':')[0]]['ms']:.4f} ms")
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         r = results[key]

@@ -1,12 +1,14 @@
 // Goldilocks (p = 2^64 - 2^32 + 1) hashes on Hopper: K4 (Poseidon2-GL t=12
 // permutation / keyed digest compression), K5 (the same with Monolith-64)
-// and K6 (rate-8 sponge, with either permutation).
+// and K6 (rate-8 sponge, with either permutation: the whole cell-digest
+// step, cell bytes in).
 //
 // Replaces the Pallas TPU kernels of
 // codex_storage_proofs_circuits_tpu/ops/goldilocks_pallas.py:
 //   K4  _perm_kernel_gl, hash_fun="poseidon2"   (permutation, compress)
 //   K5  _perm_kernel_gl, hash_fun="monolith"    (core: _mono_core_gl)
-//   K6  _sponge8_kernel_gl, both cores          (sponge_digest_felts)
+//   K6  _sponge8_kernel_gl, both cores          (sponge_digest_felts),
+//       together with the byte encode that feeds it (JAX ops/gl_encode.py)
 // The plain torch versions are ops/goldilocks_plain.py; the wrappers are
 // ops/goldilocks_cuda.py.  The hash is a template parameter, so each
 // (kernel, hash) pair is its own instantiation with its own launch count.
@@ -19,29 +21,48 @@
 // input lanes), Concrete (a 12 x 12 small-integer matrix) and round
 // constants.  The sponge starts from zeros with the capacity IV in lane 11,
 // adds each block of 8 felts into lanes 0..7 and permutes; the input gets
-// `10*` felt padding (a 1, then zeros to a multiple of 8).
+// `10*` felt padding (a 1, then zeros to a multiple of 8).  A cell's bytes
+// get `10*` byte padding to a multiple of 62 bytes, and each 62-byte chunk
+// splits little-endian into 8 felts of 62 bits: one block.  A 2048-byte
+// cell is 34 chunks, then the padding block: 35 permutations.
 //
 // What bounds it here: 64-bit modular multiplies.  Poseidon2-GL is 736 of
 // them per permutation (8 x 48 in the external rounds, 22 x 16 in the
 // internal ones), Monolith 66 plus the small-integer Concrete sums; the
-// state is 12 words that stay in registers, and each thread reads and
-// writes its own state once, so the integer multiply pipe sets the pace
-// for Poseidon2 and memory comes close for Monolith.  The design is one
-// thread per state, the 12 values as native uint64_t in registers, every
-// round unrolled with its constants as immediate __constant__ operands.  A
-// product is a * b and __umul64hi(a, b), reduced with 2^64 = 2^32 - 1 and
-// 2^96 = -1 (mod p).  A linear layer with small integer entries sums each
-// output row in 128 bits (two 64-bit sums of 32-bit halves) and reduces
-// once.  Values stay below 2^64 between operations and are made canonical
-// at exit.  The TPU kernel's 16-bit limb planes, lazy ripple/fold and
-// (48, BT) limb-major rows answered the TPU vector unit's lack of a wide
-// multiply and are not carried over.
+// state is 12 words that stay in registers, and each thread reads its
+// cell's bytes and writes its digest once, so the integer multiply pipe
+// and the issue rate set the pace.  The design is one thread per state, the
+// 12 values as native uint64_t below 2^64 (made canonical at exit), and a
+// field core that issues few instructions:
+//  - a product is one PTX block of 32-bit multiply-adds (4 wide products,
+//    their carries in the chain; an addend rides in the chain for free, so
+//    the internal layer's s_i * d_i + sum and Monolith's Bricks reduce
+//    once) and a branch-free reduction with
+//    2^64 = 2^32 - 1 and 2^96 = -1 (mod p) in sub.cc/subc and add.cc/addc
+//    chains; x^7 is x^2, then x^3 and x^4 side by side, then x^7;
+//  - an addition folds its carries (2^64 = 2^32 - 1) in a carry chain;
+//  - the external layer is the M4 addition chain of JAX ops/gl_core.py
+//    (block b of the output is M4 (x_b + x_0 + x_1 + x_2)), run on the
+//    32-bit halves of the lanes in 64-bit sums and joined and reduced once
+//    per lane, in place of a 12 x 12 multiply-add matvec;
+//  - Monolith's Concrete (entries <= 41) stays a matvec whose rows sum the
+//    32-bit halves in 64 bits and reduce once;
+//  - the round loops are rolled.  x^7 is one called function in K6, whose
+//    35 permutations a thread then run from a small loop body, and inlined
+//    in K4, a single permutation a thread: each measured the faster of the
+//    two on an H100 (PERF.md).  Unrolled rounds measured slower in both.
+//    With the product in asm, cicc compiles x^7 inlined into the rounds
+//    (a C++ product made cicc of CUDA 12.9 crash there).
+// The TPU kernel's 16-bit limb planes, lazy ripple/fold and (48, BT)
+// limb-major rows answered the TPU vector unit's lack of a wide multiply
+// and are not carried over.
 //
-// Layout at the boundary: int32 planes of 16-bit limbs.  A felt is read as
-// its 4 limbs with a lane stride, a limb stride and a column stride, and
+// Layout at the boundary: cell bytes (K6: byte i of cell b at rows[i *
+// row_stride + b * col_stride], the (cell_size, B) rows the PRNG emits or a
+// (B, cell_size).T view), or int32 planes of 16-bit limbs.  A felt is read
+// as its 4 limbs with a lane stride, a limb stride and a column stride, and
 // packed into one uint64_t, so a compression reads a layer's even and odd
-// columns in place (no stacked (12, 4, W) state), and K6 reads the encoded
-// felts and pads them itself (no padded copy).
+// columns in place.  Digests are written as canonical (4, 4, n) planes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,46 +72,164 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr uint64_t kP = 0xFFFFFFFF00000001ULL;
 constexpr uint64_t kEps = 0xFFFFFFFFULL;  // 2^64 mod p
 
 enum Hash { kPoseidon2 = 0, kMonolith = 1 };
 
+__device__ __forceinline__ uint64_t pack64(uint32_t lo, uint32_t hi) {
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// The 128-bit value r3:r2:r1:r0 -> a value below 2^64 congruent to it:
+// lo + r2 * (2^32 - 1) - r3 with lo = r1:r0, each 2^64 borrowed or carried
+// folded back as 2^32 - 1.  The borrow fold cannot borrow again (lo - r3 +
+// 2^64 >= 2^64 - 2^32), nor the carry fold carry (the sum less 2^64 is at
+// most 2^64 - 2^33).
+__device__ __forceinline__ uint64_t gl_reduce128(uint32_t r0, uint32_t r1, uint32_t r2,
+                                                 uint32_t r3) {
+  uint32_t lo, hi;
+  asm("{\n\t"
+      ".reg .u32 rbw, ru0, ru1, rc;\n\t"
+      "sub.cc.u32  %0, %2, %5;\n\t"
+      "subc.cc.u32 %1, %3, 0;\n\t"
+      "subc.u32    rbw, 0, 0;\n\t"
+      "sub.cc.u32  %0, %0, rbw;\n\t"
+      "subc.u32    %1, %1, 0;\n\t"
+      "sub.cc.u32  ru0, 0, %4;\n\t"
+      "subc.u32    ru1, %4, 0;\n\t"
+      "add.cc.u32  %0, %0, ru0;\n\t"
+      "addc.cc.u32 %1, %1, ru1;\n\t"
+      "addc.u32    rc, 0, 0;\n\t"
+      "sub.u32     rc, 0, rc;\n\t"
+      "add.cc.u32  %0, %0, rc;\n\t"
+      "addc.u32    %1, %1, 0;\n\t"
+      "}"
+      : "=r"(lo), "=r"(hi)
+      : "r"(r0), "r"(r1), "r"(r2), "r"(r3));
+  return pack64(lo, hi);
+}
+
 __device__ __forceinline__ uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
-  // hi * 2^64 + lo = lo + hl * (2^32 - 1) - hh  with hi = hh * 2^32 + hl
-  uint64_t hh = hi >> 32, hl = hi & kEps;
-  uint64_t t0 = lo - hh;
-  if (lo < hh) t0 -= kEps;  // borrowed 2^64 = eps; t0 >= 2^64 - 2^32 here
-  uint64_t t1 = (hl << 32) - hl;
-  uint64_t r = t0 + t1;
-  if (r < t1) r += kEps;  // carried 2^64 = eps; r <= 2^64 - 2^33 here
-  return r;
+  return gl_reduce128((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32));
+}
+
+// a * b + c: the four 32 x 32 -> 64 products and c summed into 128 bits
+// (below 2^128: (2^64 - 1)^2 + 2^64 - 1), then reduced.  c rides in the
+// first chain, so it costs no instruction.  (Here wide multiply-adds
+// measured slower than this chain: the 12 lanes already give each thread
+// independent products to interleave.)
+__device__ __forceinline__ uint64_t gl_mul_add(uint64_t a, uint64_t b, uint64_t c) {
+  uint32_t r0, r1, r2, r3;
+  asm("mad.lo.cc.u32  %0, %4, %6, %8;\n\t"
+      "madc.hi.cc.u32 %1, %4, %6, %9;\n\t"
+      "madc.lo.cc.u32 %2, %5, %7, %10;\n\t"
+      "madc.hi.u32    %3, %5, %7, %10;\n\t"
+      "mad.lo.cc.u32  %1, %4, %7, %1;\n\t"
+      "madc.hi.cc.u32 %2, %4, %7, %2;\n\t"
+      "addc.u32       %3, %3, 0;\n\t"
+      "mad.lo.cc.u32  %1, %5, %6, %1;\n\t"
+      "madc.hi.cc.u32 %2, %5, %6, %2;\n\t"
+      "addc.u32       %3, %3, 0;"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"((uint32_t)a), "r"((uint32_t)(a >> 32)), "r"((uint32_t)b),
+        "r"((uint32_t)(b >> 32)), "r"((uint32_t)c), "r"((uint32_t)(c >> 32)), "r"(0u));
+  return gl_reduce128(r0, r1, r2, r3);
 }
 
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-  return gl_reduce128(a * b, __umul64hi(a, b));
+  return gl_mul_add(a, b, 0);
 }
 
+// a + b folded below 2^64: a carry of 2^64 adds 2^32 - 1, which can carry
+// once more; the third fold cannot (the value is then below 2^33).
 __device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  if (s < a) {  // carried 2^64 = eps, possibly twice
-    s += kEps;
-    if (s < kEps) s += kEps;
-  }
-  return s;
+  uint32_t lo, hi;
+  asm("{\n\t"
+      ".reg .u32 rc;\n\t"
+      "add.cc.u32  %0, %2, %4;\n\t"
+      "addc.cc.u32 %1, %3, %5;\n\t"
+      "addc.u32    rc, 0, 0;\n\t"
+      "sub.u32     rc, 0, rc;\n\t"
+      "add.cc.u32  %0, %0, rc;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.u32    rc, 0, 0;\n\t"
+      "sub.u32     rc, 0, rc;\n\t"
+      "add.cc.u32  %0, %0, rc;\n\t"
+      "addc.u32    %1, %1, 0;\n\t"
+      "}"
+      : "=r"(lo), "=r"(hi)
+      : "r"((uint32_t)a), "r"((uint32_t)(a >> 32)), "r"((uint32_t)b),
+        "r"((uint32_t)(b >> 32)));
+  return pack64(lo, hi);
 }
 
+// x mod p for x < 2^64: x >= p exactly when x + (2^32 - 1) carries.
 __device__ __forceinline__ uint64_t gl_canon(uint64_t x) {
-  return x >= kP ? x - kP : x;
+  uint64_t t = x + kEps;
+  return t < x ? t : x;
 }
 
-// Not inlined: with sbox7 inlined into the unrolled Poseidon2-GL rounds,
-// cicc of CUDA 12.9 crashes (segmentation fault) on this file for sm_90a.
-// The call keeps the rounds unrolled; everything inside it is inlined.
-__device__ __noinline__ uint64_t sbox7(uint64_t x) {
+__device__ __forceinline__ uint64_t x7(uint64_t x) {
   uint64_t x2 = gl_mul(x, x);
+  uint64_t x3 = gl_mul(x2, x);
   uint64_t x4 = gl_mul(x2, x2);
-  return gl_mul(gl_mul(x4, x2), x);
+  return gl_mul(x4, x3);
+}
+
+__device__ __noinline__ uint64_t x7_call(uint64_t x) { return x7(x); }
+
+// The S-box: x^7 as a call (kCall, K6) or inlined (K4).
+template <bool kCall>
+__device__ __forceinline__ uint64_t sbox7(uint64_t x) {
+  if constexpr (kCall)
+    return x7_call(x);
+  else
+    return x7(x);
+}
+
+// lo + hi * 2^32 (each below 2^64), reduced below 2^64.
+__device__ __forceinline__ uint64_t join_halves(uint64_t lo, uint64_t hi) {
+  uint64_t v = lo + (hi << 32);
+  return gl_reduce128((uint32_t)v, (uint32_t)(v >> 32),
+                      (uint32_t)(hi >> 32) + (uint32_t)(v < lo), 0u);
+}
+
+// M4 = [[5,7,1,3],[4,6,1,1],[1,3,5,7],[1,1,4,6]] by its addition chain
+// (JAX ops/gl_core.py::_m4_chain), on integers: each output is below 16
+// times the largest input.
+__device__ __forceinline__ void m4(uint64_t* x) {
+  uint64_t t0 = x[0] + x[1], t1 = x[2] + x[3];
+  uint64_t t2 = (x[1] << 1) + t1, t3 = (x[3] << 1) + t0;
+  uint64_t t4 = (t1 << 2) + t3, t5 = (t0 << 2) + t2;
+  x[0] = t3 + t5;
+  x[1] = t5;
+  x[2] = t2 + t4;
+  x[3] = t4;
+}
+
+// s <- circ(2 M4, M4, M4) s, on the 32-bit halves of the lanes: the row
+// sums are 64, so each half's outputs stay below 2^38.
+__device__ __forceinline__ void external_layer(uint64_t s[12]) {
+  uint64_t h[2][12];
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    h[0][i] = s[i] & 0xFFFFFFFFULL;
+    h[1][i] = s[i] >> 32;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; half++) {
+    uint64_t* x = h[half];
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      uint64_t sum = x[j] + x[4 + j] + x[8 + j];
+#pragma unroll
+      for (int blk = 0; blk < 3; blk++) x[4 * blk + j] += sum;
+    }
+#pragma unroll
+    for (int blk = 0; blk < 3; blk++) m4(x + 4 * blk);
+  }
+#pragma unroll
+  for (int i = 0; i < 12; i++) s[i] = join_halves(h[0][i], h[1][i]);
 }
 
 // s <- M s for a 12 x 12 matrix of small non-negative integers (row sums
@@ -106,41 +245,42 @@ __device__ __forceinline__ void small_matvec(uint64_t s[12],
       lo += (uint64_t)m[r][c] * (s[c] & 0xFFFFFFFFULL);
       hi += (uint64_t)m[r][c] * (s[c] >> 32);
     }
-    uint64_t vlo = lo + (hi << 32);
-    uint64_t vhi = (hi >> 32) + (vlo < lo);
-    out[r] = gl_reduce128(vlo, vhi);
+    out[r] = join_halves(lo, hi);
   }
 #pragma unroll
   for (int r = 0; r < 12; r++) s[r] = out[r];
 }
 
-__device__ __forceinline__ void p2_external_round(uint64_t s[12], int r,
-                                                  const uint32_t (&ext)[12][12]) {
+template <bool kCall>
+__device__ __forceinline__ void p2_external_round(uint64_t s[12], int r) {
 #pragma unroll
-  for (int i = 0; i < 12; i++) s[i] = sbox7(gl_add(s[i], GL_P2_EXT_RC[r][i]));
-  small_matvec(s, ext);
+  for (int i = 0; i < 12; i++) s[i] = sbox7<kCall>(gl_add(s[i], GL_P2_EXT_RC[r][i]));
+  external_layer(s);
 }
 
-__device__ __forceinline__ void poseidon2_gl(uint64_t s[12]) {
-  constexpr uint32_t ext[12][12] = GL_P2_EXT_MATRIX;
-  small_matvec(s, ext);
+template <bool kCall>
+__device__ __forceinline__ void p2_internal_round(uint64_t s[12], int k) {
+  s[0] = sbox7<kCall>(gl_add(s[0], GL_P2_INT_RC[k]));
+  uint64_t lo = 0, hi = 0;  // the lane sum in 128 bits
 #pragma unroll
-  for (int r = 0; r < GL_P2_RF / 2; r++) p2_external_round(s, r, ext);
-#pragma unroll
-  for (int k = 0; k < GL_P2_RP; k++) {
-    s[0] = sbox7(gl_add(s[0], GL_P2_INT_RC[k]));
-    uint64_t lo = 0, hi = 0;  // the lane sum in 128 bits
-#pragma unroll
-    for (int i = 0; i < 12; i++) {
-      lo += s[i];
-      hi += (lo < s[i]);
-    }
-    uint64_t tot = gl_reduce128(lo, hi);
-#pragma unroll
-    for (int i = 0; i < 12; i++) s[i] = gl_add(tot, gl_mul(s[i], GL_P2_DIAG[i]));
+  for (int i = 0; i < 12; i++) {
+    lo += s[i];
+    hi += (lo < s[i]);
   }
+  uint64_t tot = gl_reduce128(lo, hi);
 #pragma unroll
-  for (int r = GL_P2_RF / 2; r < GL_P2_RF; r++) p2_external_round(s, r, ext);
+  for (int i = 0; i < 12; i++) s[i] = gl_mul_add(s[i], GL_P2_DIAG[i], tot);
+}
+
+template <bool kCall>
+__device__ __forceinline__ void poseidon2_gl(uint64_t s[12]) {
+  external_layer(s);
+#pragma unroll 1
+  for (int r = 0; r < GL_P2_RF / 2; r++) p2_external_round<kCall>(s, r);
+#pragma unroll 1
+  for (int k = 0; k < GL_P2_RP; k++) p2_internal_round<kCall>(s, k);
+#pragma unroll 1
+  for (int r = GL_P2_RF / 2; r < GL_P2_RF; r++) p2_external_round<kCall>(s, r);
 }
 
 // Per-byte rotate left by k of the 8 bytes of x.
@@ -160,22 +300,23 @@ __device__ __forceinline__ uint64_t bar64(uint64_t x) {
 __device__ __forceinline__ void monolith(uint64_t s[12]) {
   constexpr uint32_t concrete[12][12] = GL_MONO_CONCRETE;
   small_matvec(s, concrete);
-#pragma unroll
+#pragma unroll 1
   for (int r = 0; r < GL_MONO_ROUNDS; r++) {
 #pragma unroll
     for (int i = 0; i < GL_MONO_BARS; i++) s[i] = gl_canon(bar64(gl_canon(s[i])));
 #pragma unroll
-    for (int i = 11; i > 0; i--) s[i] = gl_add(s[i], gl_mul(s[i - 1], s[i - 1]));
+    for (int i = 11; i > 0; i--) s[i] = gl_mul_add(s[i - 1], s[i - 1], s[i]);
     small_matvec(s, concrete);
 #pragma unroll
     for (int i = 0; i < 12; i++) s[i] = gl_add(s[i], GL_MONO_RC[r][i]);
   }
 }
 
-template <int H>
+// kCall: x^7 as a call (Poseidon2-GL only; Monolith has no x^7).
+template <int H, bool kCall>
 __device__ __forceinline__ void permute(uint64_t s[12]) {
   if constexpr (H == kPoseidon2)
-    poseidon2_gl(s);
+    poseidon2_gl<kCall>(s);
   else
     monolith(s);
 }
@@ -190,6 +331,60 @@ __device__ __forceinline__ void store_felt(int32_t* p, long long limb_stride, ui
 #pragma unroll
   for (int k = 0; k < 4; k++) p[k * limb_stride] = (int32_t)((v >> (16 * k)) & 0xFFFFu);
 }
+
+// K6 source: an (nf, 4, n) felt view (felt stride, limb stride, column
+// stride), with the `10*` felt padding applied here.
+struct PlaneFelts {
+  const int32_t* felts;
+  long long fs, ks, cs;
+  int nf;
+
+  __device__ int nblocks() const { return (nf + GL_RATE) / GL_RATE; }  // nf + 1, rounded up
+  __device__ void block(long long b, int k, uint64_t f[GL_RATE]) const {
+    const int32_t* col = felts + b * cs;
+#pragma unroll
+    for (int j = 0; j < GL_RATE; j++) {
+      int i = k * GL_RATE + j;
+      f[j] = i < nf ? load_felt(col + i * fs, ks) : (i == nf ? 1 : 0);
+    }
+  }
+};
+
+// K6 source: cell bytes, byte i of cell b at rows[i * rs + b * cs]; nch =
+// ceil((cell + 1) / 62) chunks of 8 felts, then the padding block [1, 0..0].
+struct ByteRows {
+  const uint8_t* rows;
+  long long rs, cs;
+  int cell, nch;
+
+  __device__ int nblocks() const { return nch + 1; }
+  __device__ void block(long long b, int k, uint64_t f[GL_RATE]) const {
+    if (k == nch) {
+#pragma unroll
+      for (int j = 0; j < GL_RATE; j++) f[j] = j == 0;
+      return;
+    }
+    const uint8_t* col = rows + b * cs;
+    uint32_t w[16];  // the 62 bytes of chunk k, little-endian, 2 zero bytes
+#pragma unroll
+    for (int q = 0; q < 16; q++) w[q] = 0;
+    const int base = 62 * k;
+#pragma unroll
+    for (int t = 0; t < 62; t++) {
+      const int i = base + t;
+      uint32_t v = i < cell ? (uint32_t)col[(long long)i * rs] : (i == cell ? 1u : 0u);
+      w[t / 4] |= v << (8 * (t % 4));
+    }
+#pragma unroll
+    for (int j = 0; j < GL_RATE; j++) {  // felt j: bits 62j .. 62j + 61
+      constexpr int kBits = 62;
+      const int q = kBits * j / 32, sh = kBits * j % 32;
+      uint64_t v = pack64(w[q], w[q + 1]) >> sh;
+      if (sh > 2) v |= (uint64_t)w[q + 2] << (64 - sh);
+      f[j] = v & ((1ULL << kBits) - 1);
+    }
+  }
+};
 
 // K4 / K5.  With y null, all 12 lanes come from x (a (12, 4, n) view);
 // otherwise lanes 0..3 from x and 4..7 from y ((4, 4, n) views: a layer's
@@ -216,36 +411,31 @@ gl_perm_kernel(const int32_t* __restrict__ x, long long xls, long long xks, long
     s[8] = (uint64_t)key;
     s[9] = s[10] = s[11] = 0;
   }
-  permute<H>(s);
+  permute<H, false>(s);
 #pragma unroll
   for (int i = 0; i < 12; i++)
     if (i < out_lanes) store_felt(out + i * 4 * n + b, n, gl_canon(s[i]));
 }
 
-// K6.  felts is an (nf, 4, n) view (felt stride, limb stride, column
-// stride); out is contiguous (4, 4, n), the canonical digests.  The state
-// stays in registers across all (nf + 8) / 8 permutations.
-template <int H>
+// K6.  Absorbs src's blocks of 8 felts; out is contiguous (4, 4, n), the
+// canonical digests.  The state stays in registers across all permutations.
+template <int H, class Src>
 __global__ void __launch_bounds__(kThreads)
-gl_sponge8_kernel(const int32_t* __restrict__ felts, long long fs, long long ks,
-                  long long cs, int nf, int32_t* __restrict__ out, long long n) {
+gl_sponge8_kernel(Src src, int32_t* __restrict__ out, long long n) {
   long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n) return;
   uint64_t s[12];
 #pragma unroll
   for (int i = 0; i < 11; i++) s[i] = 0;
   s[11] = GL_SPONGE_IV;
-  const int32_t* col = felts + b * cs;
-  const int nblocks = (nf + GL_RATE) / GL_RATE;  // nf + 1 felts, rounded up
+  const int nb = src.nblocks();
 #pragma unroll 1
-  for (int k = 0; k < nblocks; k++) {
+  for (int k = 0; k < nb; k++) {
+    uint64_t f[GL_RATE];
+    src.block(b, k, f);
 #pragma unroll
-    for (int j = 0; j < GL_RATE; j++) {
-      int f = k * GL_RATE + j;
-      uint64_t v = f < nf ? load_felt(col + f * fs, ks) : (f == nf ? 1 : 0);
-      s[j] = gl_add(s[j], v);
-    }
-    permute<H>(s);
+    for (int j = 0; j < GL_RATE; j++) s[j] = gl_add(s[j], f[j]);
+    permute<H, true>(s);
   }
 #pragma unroll
   for (int i = 0; i < 4; i++) store_felt(out + i * 4 * n + b, n, gl_canon(s[i]));
@@ -253,6 +443,22 @@ gl_sponge8_kernel(const int32_t* __restrict__ felts, long long fs, long long ks,
 
 inline unsigned n_blocks(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <class Src>
+int launch_sponge8(int hash, const Src& src, int32_t* out, long long n, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (hash != kPoseidon2 && hash != kMonolith) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (hash == kPoseidon2)
+      gl_sponge8_kernel<kPoseidon2, Src><<<n_blocks(n), kThreads, 0, st>>>(src, out, n);
+    else
+      gl_sponge8_kernel<kMonolith, Src><<<n_blocks(n), kThreads, 0, st>>>(src, out, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -278,23 +484,23 @@ int cspc_gl_perm(int hash, const int32_t* x, long long xls, long long xks, long 
   return (int)cudaGetLastError();
 }
 
-// K6 with the core `hash` (0 Poseidon2-GL, 1 Monolith).
+// K6 with the core `hash` (0 Poseidon2-GL, 1 Monolith) over an (nf, 4, n)
+// felt view.
 int cspc_gl_sponge8(int hash, const int32_t* felts, long long fs, long long ks,
                     long long cs, int nf, int32_t* out, long long n, int device,
                     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (hash != kPoseidon2 && hash != kMonolith) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (hash == kPoseidon2)
-      gl_sponge8_kernel<kPoseidon2><<<n_blocks(n), kThreads, 0, st>>>(
-          felts, fs, ks, cs, nf, out, n);
-    else
-      gl_sponge8_kernel<kMonolith><<<n_blocks(n), kThreads, 0, st>>>(
-          felts, fs, ks, cs, nf, out, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_sponge8(hash, PlaneFelts{felts, fs, ks, cs, nf}, out, n, device, stream);
+}
+
+// K6 with the core `hash` over cell bytes: byte i of cell b at
+// rows[i * row_stride + b * col_stride].
+int cspc_gl_sponge8_rows(int hash, const uint8_t* rows, long long row_stride,
+                         long long col_stride, int cell_size, int32_t* out, long long n,
+                         int device, void* stream) {
+  if (cell_size < 0) return (int)cudaErrorInvalidValue;
+  const int nch = (cell_size + 62) / 62;  // ceil((cell_size + 1) / 62)
+  return launch_sponge8(hash, ByteRows{rows, row_stride, col_stride, cell_size, nch}, out, n,
+                        device, stream);
 }
 
 }  // extern "C"

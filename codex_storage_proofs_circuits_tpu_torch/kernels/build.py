@@ -27,7 +27,7 @@ import torch
 
 from ..fields import bn254
 from ..fields import goldilocks as G
-from ..fields.gl_tables import SPONGE_IV, external_matrix
+from ..fields.gl_tables import SPONGE_IV
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -40,10 +40,13 @@ NVCC_FLAGS = [
 NVCC_TIMEOUT_S = 900
 
 # Launch counts of the kernels: K1 "perm", K2 "sponge2", K3 "prng",
-# K4 "gl_perm", K5 "mono_perm", K6 "gl_sponge8" / "mono_sponge8".
+# K4 "gl_perm", K5 "mono_perm", K6 "gl_sponge8" / "mono_sponge8".  K2 and
+# K6 count their byte-row entries (the main paths') under those names and
+# their limb-plane entries (the JAX parity API) under "..._planes".
 LAUNCHES = {
     "perm": 0, "sponge2": 0, "prng": 0,
     "gl_perm": 0, "mono_perm": 0, "gl_sponge8": 0, "mono_sponge8": 0,
+    "sponge2_planes": 0, "gl_sponge8_planes": 0, "mono_sponge8_planes": 0,
 }
 
 _lock = threading.Lock()
@@ -55,12 +58,16 @@ _SIGNATURES = {
     "cspc_p2_perm": [_VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _I, _VP, _I, _LL, _I, _VP],
     # blocks, nb, out, n, device, stream
     "cspc_p2_sponge2": [_VP, _I, _VP, _LL, _I, _VP],
+    # rows, row_stride, col_stride, cell_size, out, n, device, stream
+    "cspc_p2_sponge2_rows": [_VP, _LL, _LL, _I, _VP, _LL, _I, _VP],
     # seed1_base, seed2_base, out, n_steps, n, device, stream
     "cspc_fake_prng_rows": [_VP, _VP, _VP, _I, _LL, _I, _VP],
     # hash, x, xls, xks, xcs, y, yls, yks, ycs, key, out, out_lanes, n, device, stream
     "cspc_gl_perm": [_I, _VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _VP, _I, _LL, _I, _VP],
     # hash, felts, fs, ks, cs, nf, out, n, device, stream
     "cspc_gl_sponge8": [_I, _VP, _LL, _LL, _LL, _I, _VP, _LL, _I, _VP],
+    # hash, rows, row_stride, col_stride, cell_size, out, n, device, stream
+    "cspc_gl_sponge8_rows": [_I, _VP, _LL, _LL, _I, _VP, _LL, _I, _VP],
 }
 
 
@@ -70,9 +77,11 @@ def _words(x: int) -> str:
 
 
 def constants_header() -> str:
-    """The Poseidon2 constants of fields/bn254.py as a CUDA header: P, the
-    32-bit Montgomery quotient factor, and the round constants, Merkle keys
-    and sponge IV in Montgomery form (R = 2^256), as 8 x 32-bit words."""
+    """The Poseidon2 constants of fields/bn254.py as a CUDA header: P, 2P,
+    R mod P (ONE_MONT) and R^2 mod P as initializers of 8 x 32-bit words for
+    local constexpr arrays, the 32-bit Montgomery quotient factor, and the
+    round constants, Merkle keys and sponge IV in Montgomery form
+    (R = 2^256)."""
     mont = bn254.to_mont
     p = bn254.P
     lines = [
@@ -82,7 +91,10 @@ def constants_header() -> str:
         "",
         f"#define FR_PINV 0x{(-pow(p, -1, 1 << 32)) % (1 << 32):08x}u  // -P^-1 mod 2^32",
         f"#define P2_N_INTERNAL {bn254.N_INTERNAL_ROUNDS}",
-        f"static __constant__ uint32_t FR_P[8] = {_words(p)};",
+        f"#define FR_P_WORDS {_words(p)}",
+        f"#define FR_2P_WORDS {_words(2 * p)}",
+        f"#define FR_ONE_WORDS {_words(bn254.R_MONT)}",
+        f"#define FR_R2_WORDS {_words(bn254.R2_MONT)}",
         f"static __constant__ uint32_t P2_EXT_RC[{bn254.N_EXTERNAL_ROUNDS}][3][8] = {{",
     ]
     for triple in bn254.EXTERNAL_ROUND_CONSTS:
@@ -106,13 +118,17 @@ def _matrix(m) -> str:
 
 def gl_constants_header() -> str:
     """The Goldilocks tables of fields/goldilocks.py as a CUDA header: the
-    Poseidon2-GL round constants, internal diagonal (mu_i - 1) and external
-    matrix, the Monolith round constants and Concrete matrix, the sponge IV.
-    The two matrices are initializers of small integers for local constexpr
-    arrays, so the unrolled rounds fold them into immediates."""
-    for m in (external_matrix(), G.MONOLITH_CONCRETE):
-        if any(v < 0 for row in m for v in row) or max(sum(row) for row in m) >= 1 << 20:
-            raise ValueError("a Goldilocks linear layer is not a small non-negative matrix")
+    Poseidon2-GL round constants and internal diagonal (mu_i - 1), the
+    Monolith round constants and Concrete matrix, the sponge IV.  The
+    Concrete is an initializer of small integers for a local constexpr
+    array, so the unrolled row sums fold it into immediates.  The external
+    layer circ(2 M4, M4, M4) is the kernel's M4 addition chain, which holds
+    only for the M4 it was written for (checked here)."""
+    if [list(row) for row in G.M4] != M4_CHAIN:
+        raise ValueError("the Poseidon2-GL M4 is not the matrix of the kernel's addition chain")
+    m = G.MONOLITH_CONCRETE
+    if any(v < 0 for row in m for v in row) or max(sum(row) for row in m) >= 1 << 20:
+        raise ValueError("the Monolith Concrete is not a small non-negative matrix")
 
     def u64(v: int) -> str:
         return f"0x{v:016x}ULL"
@@ -131,7 +147,6 @@ def gl_constants_header() -> str:
         f"#define GL_MONO_ROUNDS {G.MONOLITH_ROUNDS}",
         f"#define GL_MONO_BARS {G.MONOLITH_BARS}",
         f"#define GL_SPONGE_IV {u64(SPONGE_IV)}",
-        f"#define GL_P2_EXT_MATRIX {_matrix(external_matrix())}",
         f"#define GL_MONO_CONCRETE {_matrix(G.MONOLITH_CONCRETE)}",
         f"static __constant__ uint64_t GL_P2_EXT_RC[{G.RF}][{G.T}] = {{",
         rows(G.P2GL_EXTERNAL_RC),
@@ -145,6 +160,10 @@ def gl_constants_header() -> str:
         "};",
     ]) + "\n"
 
+
+# The M4 of csrc/goldilocks.cu::m4, whose addition chain computes exactly
+# this matrix.
+M4_CHAIN = [[5, 7, 1, 3], [4, 6, 1, 1], [1, 3, 5, 7], [1, 1, 4, 6]]
 
 HEADERS = {
     "poseidon2_bn254_constants.h": constants_header,

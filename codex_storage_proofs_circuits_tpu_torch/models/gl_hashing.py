@@ -3,10 +3,13 @@
 Port of codex_storage_proofs_circuits_tpu/models/gl_hashing.py and of the
 two single-device reducers of parallel/gl_tree.py (gl_tree_reduce_layers,
 gl_tree_reduce_general), the GL twins of models/hashing.py.  One rate-8
-sponge launch (kernel K6) digests every cell of a batch, and each Merkle
-layer is one batched keyed compression (K4 for Poseidon2-GL, K5 for
-Monolith) over the whole layer width.  Digest layers are (4, 4, W) int32
-limb planes (lane, limb, node).
+sponge launch (kernel K6) digests every cell of a batch straight from its
+byte rows (the byte encode happens in the kernel), and each Merkle layer
+is one batched keyed compression (K4 for Poseidon2-GL, K5 for Monolith)
+over the whole layer width.  Digest layers are (4, 4, W) int32 limb planes
+(lane, limb, node).  The felt entry points (sponge_digests,
+slot_tree_from_felts_gl) are the JAX package's API, kept for the parity
+tests.
 
 The JAX twin's TPU machinery is not carried over: the Pallas tile minimum
 (_PALLAS_MIN_BATCH) and the lane padding up to it; the kernels take any
@@ -33,6 +36,12 @@ FELTS_PER_DIGEST = 4
 def sponge_digests(hash_fun: str, felts: torch.Tensor) -> torch.Tensor:
     """(n, 4, B) felts -> (4, 4, B) digests (K6 on a CUDA tensor)."""
     return GC.sponge_digest_felts(felts, hash_fun)
+
+
+def sponge_digests_rows(hash_fun: str, rows: torch.Tensor) -> torch.Tensor:
+    """(cell_size, B) uint8 byte rows -> (4, 4, B) digests (K6 on a CUDA
+    tensor)."""
+    return GC.sponge_digest_rows(rows, hash_fun)
 
 
 def compress_digests(hash_fun: str, key: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -94,15 +103,25 @@ def gl_tree_reduce_general(leaves: torch.Tensor, hash_fun: str) -> list[torch.Te
     return layers
 
 
+def slot_tree_from_rows_gl(
+    hash_fun: str, rows: torch.Tensor, block_tree_depth: int, n_groups: int = 1
+) -> list[torch.Tensor]:
+    """Cell byte rows -> all flat tree layers (cell digests first, roots last).
+
+    rows: (cell_size, B); layer d has shape (4, 4, B >> d).  Key 1 at depth
+    0 and at block_tree_depth (the flat cell -> block -> slot stack).
+    `n_groups` same-shaped slots may lie side by side on the batch axis.
+    """
+    return gl_tree_reduce_layers(
+        sponge_digests_rows(hash_fun, rows), hash_fun, (0, block_tree_depth),
+        stop_width=n_groups,
+    )
+
+
 def slot_tree_from_felts_gl(
     hash_fun: str, cells_felts: torch.Tensor, block_tree_depth: int, n_groups: int = 1
 ) -> list[torch.Tensor]:
-    """Encoded cells -> all flat tree layers (cell digests first, roots last).
-
-    cells_felts: (nfelts, 4, B); layer d has shape (4, 4, B >> d).  Key 1 at
-    depth 0 and at block_tree_depth (the flat cell -> block -> slot stack).
-    `n_groups` same-shaped slots may lie side by side on the batch axis.
-    """
+    """Encoded cells (nfelts, 4, B) -> the layers of slot_tree_from_rows_gl."""
     return gl_tree_reduce_layers(
         sponge_digests(hash_fun, cells_felts), hash_fun, (0, block_tree_depth),
         stop_width=n_groups,
@@ -131,7 +150,8 @@ def build_slot_trees_gl(hash_fun: str, cfgs: list[SlotConfig], device) -> list[S
     btd = cfg0.cells_per_block.bit_length() - 1
     n_slots = len(cfgs)
     cells = np.concatenate([D.load_slot_cells(c) for c in cfgs], axis=0)
-    layers = slot_tree_from_felts_gl(hash_fun, encode_cells_gl(cells, device), btd, n_slots)
+    rows = torch.from_numpy(cells).to(device).T  # (cell_size, S * n_cells), read in place
+    layers = slot_tree_from_rows_gl(hash_fun, rows, btd, n_slots)
     flat = [digests(lyr) for lyr in layers]
 
     k = cfg0.cells_per_block

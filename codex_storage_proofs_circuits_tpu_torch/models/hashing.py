@@ -1,9 +1,12 @@
 """Batched hashing pipeline pieces: cell hashing and Merkle layer reduction.
 
-Port of codex_storage_proofs_circuits_tpu/models/hashing.py.  One rate-2
-sponge pass (kernel K2) hashes every cell of a batch at once, and each
-Merkle layer is one batched keyed compression (kernel K1) over the full
-layer width.  Layers are (NL, W) int32 limb planes.
+Port of codex_storage_proofs_circuits_tpu/models/hashing.py.  One launch
+of kernel K2 hashes every cell of a batch at once, straight from its byte
+rows (the byte encode, the Montgomery form and the felt padding happen in
+the kernel), and each Merkle layer is one batched keyed compression
+(kernel K1) over the full layer width.  Layers are (NL, W) int32 limb
+planes.  The felt entry points (hash_cells_mont, slot_tree_from_felts) are
+the JAX package's API, kept for the parity tests.
 
 The JAX twin's TPU machinery is not carried over: the 512-lane padding of
 the Pallas tile (the CUDA kernels take any width), and the fixed-width
@@ -17,7 +20,7 @@ import torch
 
 from ..ops import limbs as L
 from ..ops import poseidon2_cuda as P2C
-from ..ops.poseidon2_plain import pad_felts_rate2
+from ..ops.poseidon2_plain import pad_felts_rate2, to_mont_stack
 
 NL = L.NL
 
@@ -26,11 +29,7 @@ NL = L.NL
 permute = P2C.permutation  # (3, NL, B) -> (3, NL, B)
 compress_layer = P2C.compress_layer  # (NL, B), (NL, B), key -> (NL, B)
 sponge2_scan = P2C.sponge2_absorb  # (nb, 2, NL, B) -> (NL, B)
-
-
-def to_mont_stack(felts: torch.Tensor) -> torch.Tensor:
-    """(K, NL, B) canonical -> Montgomery, as one batched (NL, K, B) multiply."""
-    return L.to_mont(felts.transpose(0, 1)).transpose(0, 1).contiguous()
+hash_cells_rows = P2C.sponge2_rows  # (cell_size, B) uint8 rows -> (NL, B)
 
 
 def hash_cells_mont(cells_felts: torch.Tensor) -> torch.Tensor:
@@ -129,17 +128,28 @@ def from_mont_layers(layers: list[torch.Tensor]) -> list[torch.Tensor]:
     return list(torch.split(canon, [lyr.shape[1] for lyr in layers], dim=1))
 
 
-def slot_tree_from_felts(
-    cells_felts: torch.Tensor, block_tree_depth: int, n_groups: int = 1
+def _slot_tree(hashes: torch.Tensor, block_tree_depth: int, n_groups: int) -> list[torch.Tensor]:
+    layers = tree_reduce_layers(
+        hashes, bottom_depths=(0, block_tree_depth), stop_width=n_groups
+    )
+    return from_mont_layers(layers)
+
+
+def slot_tree_from_rows(
+    rows: torch.Tensor, block_tree_depth: int, n_groups: int = 1
 ) -> list[torch.Tensor]:
-    """Encoded cells -> all tree layers of the slot, canonical form.
+    """Cell byte rows (cell_size, B) -> all tree layers of the slot,
+    canonical form.
 
     Bottom (cell hashes) first, per-tree root(s) last; layer
     block_tree_depth holds the block roots.  `n_groups` independent
     same-shaped slots may lie side by side on the batch axis.
     """
-    hashes = hash_cells_mont(cells_felts)
-    layers = tree_reduce_layers(
-        hashes, bottom_depths=(0, block_tree_depth), stop_width=n_groups
-    )
-    return from_mont_layers(layers)
+    return _slot_tree(hash_cells_rows(rows), block_tree_depth, n_groups)
+
+
+def slot_tree_from_felts(
+    cells_felts: torch.Tensor, block_tree_depth: int, n_groups: int = 1
+) -> list[torch.Tensor]:
+    """Encoded cells (nfelts, NL, B) -> the layers of slot_tree_from_rows."""
+    return _slot_tree(hash_cells_mont(cells_felts), block_tree_depth, n_groups)

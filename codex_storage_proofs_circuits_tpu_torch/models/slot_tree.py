@@ -20,7 +20,6 @@ from ..oracle.poseidon2 import keyed_compression
 from ..oracle.slot import SlotConfig
 
 from ..ops import limbs as L
-from ..ops.encode import encode_cells
 from . import hashing as H
 
 
@@ -62,8 +61,8 @@ def build_slot_trees(cfgs: list[SlotConfig], device) -> list[DeviceSlotTree]:
 
     n_slots = len(cfgs)
     cells = np.concatenate([D.load_slot_cells(c) for c in cfgs], axis=0)
-    felts = encode_cells(torch.from_numpy(cells).to(device))  # (nfelts, NL, S*n_cells)
-    layers = H.slot_tree_from_felts(felts, btd, n_groups=n_slots)
+    rows = torch.from_numpy(cells).to(device).T  # (cell_size, S * n_cells), read in place
+    layers = H.slot_tree_from_rows(rows, btd, n_groups=n_slots)
 
     per_slot: list[list[np.ndarray]] = [[] for _ in range(n_slots)]
     for lyr in layers:

@@ -6,14 +6,15 @@ stream through the device in chunks; each chunk is a complete, aligned
 subtree of the slot tree (the chunk size divides n_cells, both powers of
 two), so its digest layers are exact contiguous segments of the global
 layer stack.  The device keeps only digest layers (64 B per node as int32
-limb planes, about twice the leaf count in all).
+limb planes, about twice the leaf count in all) and one chunk's byte rows.
 
 A fake-data chunk is one pass on the device, with no cell bytes crossing
-from the host: seed bases (32 B) -> PRNG (kernel K3) -> byte pad + felt
-encode -> the cell hashes -> one compression launch per layer.  For BN254
-the felts go to Montgomery form and the hashes are K2 and K1; for
-Goldilocks the hashes are K6 and K4 (Poseidon2-GL) or K5 (Monolith).
-File-backed data loads on the host and crosses per chunk.
+from the host: seed bases (32 B) -> PRNG (kernel K3) -> (cell_size, B)
+byte rows -> the cell hashes, straight from the rows (K2 for BN254, K6 for
+Goldilocks: the byte encode, and for BN254 the Montgomery form, happen in
+the kernel) -> one compression launch per layer (K1; K4 for Poseidon2-GL,
+K5 for Monolith).  File-backed data loads on the host, crosses per chunk
+and is read in place as a (B, cell_size).T view.
 
 Chunk-checkpoint resume is not ported yet.
 """
@@ -26,29 +27,29 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import gl_encode
 from ..ops import limbs as L
-from ..ops.encode import encode_rows
 from ..ops.fake_prng import fake_seed_bases, gen_rows
 from ..oracle.slot import SlotConfig
 from . import data as D
 from . import gl_hashing as GH
 from . import hashing as H
 
-# One thread per cell in the kernels: 2^16 cells fill the card's 132 SMs
-# where the JAX package's 2^13 left most of them idle.  The root and the
-# layers do not depend on the chunk size.
-DEFAULT_CHUNK_CELLS = 1 << 16
+# One thread per cell in the kernels.  With the byte encode in the hash
+# kernels a chunk holds only its byte rows (512 MiB at 2^18 cells of 2048
+# bytes) and its digest layers; a warm 1 GB slot root measured 13-23 %
+# faster at 2^18 cells than at 2^16 on an H100 (tools_torch/chunk_sweep.py; the
+# 2^16 launches leave most of each SM's room for resident warps empty), at a
+# peak of 1.2 GiB.  The root and the layers do not depend on the chunk size.
+DEFAULT_CHUNK_CELLS = 1 << 18
 
 
 @dataclass
 class StreamingStats:
     """Host wall-clock of a streaming build by stage.  Device work is
-    asynchronous, so datagen/encode/device time the dispatch; the final
-    wait for the device falls in finalize_s."""
+    asynchronous, so datagen/device time the dispatch; the final wait for
+    the device falls in finalize_s."""
 
     datagen_s: float = 0.0
-    encode_s: float = 0.0
     device_s: float = 0.0
     finalize_s: float = 0.0
     chunks: int = 0
@@ -58,7 +59,7 @@ class StreamingStats:
         return dict(self.__dict__)
 
 
-def _chunk_layers(cfg: SlotConfig, c: int, chunk_cells: int, device, st, encode, tree):
+def _chunk_layers(cfg: SlotConfig, c: int, chunk_cells: int, device, st, tree):
     t0 = time.perf_counter()
     if cfg.data_src.kind == "fake":
         s1, s2 = fake_seed_bases(cfg.data_src.seed, c * chunk_cells, device)
@@ -67,21 +68,19 @@ def _chunk_layers(cfg: SlotConfig, c: int, chunk_cells: int, device, st, encode,
         cells = D.load_cells(cfg, np.arange(c * chunk_cells, (c + 1) * chunk_cells))
         rows = torch.from_numpy(cells).to(device).T
     t1 = time.perf_counter()
-    felts = encode(rows)
-    t2 = time.perf_counter()
-    layers = tree(felts)
+    layers = tree(rows)
     st.datagen_s += t1 - t0
-    st.encode_s += t2 - t1
-    st.device_s += time.perf_counter() - t2
+    st.device_s += time.perf_counter() - t1
     st.chunks += 1
     st.cells += chunk_cells
     return layers
 
 
-def _stream(cfg: SlotConfig, chunk_cells: int, stats, device, encode, tree, tops):
-    """The chunk loop shared by both fields.  encode: byte rows -> felts;
-    tree(felts, btd): a chunk's layers; tops(chunk roots, btd, chunk depth):
-    the layers above the chunks.  Layers concatenate on their last axis."""
+def _stream(cfg: SlotConfig, chunk_cells: int, stats, device, tree, tops):
+    """The chunk loop shared by both fields.  tree(rows, btd): a chunk's
+    layers from its (cell_size, B) byte rows; tops(chunk roots, btd, chunk
+    depth): the layers above the chunks.  Layers concatenate on their last
+    axis."""
     n_cells = cfg.n_cells
     btd = cfg.cells_per_block.bit_length() - 1
     chunk_cells = min(chunk_cells, n_cells)
@@ -95,8 +94,7 @@ def _stream(cfg: SlotConfig, chunk_cells: int, stats, device, encode, tree, tops
 
     segments: list[list[torch.Tensor]] = [[] for _ in range(chunk_depth + 1)]
     for c in range(n_chunks):
-        layers = _chunk_layers(cfg, c, chunk_cells, device, st, encode,
-                               lambda felts: tree(felts, btd))
+        layers = _chunk_layers(cfg, c, chunk_cells, device, st, lambda rows: tree(rows, btd))
         for d, lyr in enumerate(layers):
             segments[d].append(lyr)
 
@@ -122,7 +120,7 @@ def streaming_slot_layers(
 
     Returns layers[d] of shape (NL, n_cells >> d): layers[0] the cell
     hashes, layers[-1] the (NL, 1) slot root, identical to
-    H.slot_tree_from_felts over all cells at once.
+    H.slot_tree_from_rows over all cells at once.
     """
 
     def tops(roots, btd, chunk_depth):
@@ -131,7 +129,7 @@ def streaming_slot_layers(
         )
         return H.from_mont_layers(layers[1:])
 
-    return _stream(cfg, chunk_cells, stats, device, encode_rows, H.slot_tree_from_felts, tops)
+    return _stream(cfg, chunk_cells, stats, device, H.slot_tree_from_rows, tops)
 
 
 def streaming_slot_root(
@@ -154,16 +152,16 @@ def streaming_slot_layers_gl(
     """Goldilocks slot-tree digest layer stack (canonical), in chunks.
 
     Returns layers[d] of shape (4, 4, n_cells >> d), identical to
-    GH.slot_tree_from_felts_gl over all cells at once.
+    GH.slot_tree_from_rows_gl over all cells at once.
     """
 
-    def tree(felts, btd):
-        return GH.slot_tree_from_felts_gl(hash_fun, felts, btd)
+    def tree(rows, btd):
+        return GH.slot_tree_from_rows_gl(hash_fun, rows, btd)
 
     def tops(roots, btd, chunk_depth):
         return GH.gl_tree_reduce_layers(roots, hash_fun, (0, btd), depth_offset=chunk_depth)[1:]
 
-    return _stream(cfg, chunk_cells, stats, device, gl_encode.encode_rows, tree, tops)
+    return _stream(cfg, chunk_cells, stats, device, tree, tops)
 
 
 def streaming_slot_root_gl(

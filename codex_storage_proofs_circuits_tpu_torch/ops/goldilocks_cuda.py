@@ -2,10 +2,14 @@
 compression), K5 (Monolith) and K6 (rate-8 sponge), csrc/goldilocks.cu.
 
 Port of codex_storage_proofs_circuits_tpu/ops/goldilocks_pallas.py
-(`permutation`, `compress`, `sponge_digest_felts`).  A CUDA tensor launches
-the kernel; a CPU tensor goes to the plain version (ops/goldilocks_plain.py).
+(`permutation`, `compress`, `sponge_digest_felts`), and
+`sponge_digest_rows`, the whole cell-digest step from byte rows in one K6
+launch.  A CUDA tensor launches the kernel; a CPU tensor goes to the plain
+version (ops/goldilocks_plain.py).
 Each launch adds one to kernels.build.LAUNCHES: "gl_perm" (K4) or
-"mono_perm" (K5), and "gl_sponge8" or "mono_sponge8" (K6 with each core).
+"mono_perm" (K5), and "gl_sponge8" or "mono_sponge8" (K6 with each core,
+byte rows; its limb-plane entry counts under "gl_sponge8_planes" or
+"mono_sponge8_planes").
 Planes are int32 16-bit limbs; outputs are canonical.
 """
 
@@ -86,5 +90,25 @@ def sponge_digest_felts(felts: torch.Tensor, hash_fun: str = "poseidon2") -> tor
         _hash_id(hash_fun), _ptr(felts), *felts.stride(), nf, _ptr(out), n, dev, stream
     )
     build.check(err, f"goldilocks {hash_fun} sponge kernel")
+    build.LAUNCHES[_SPONGE_COUNTER[hash_fun] + "_planes"] += 1
+    return out
+
+
+def sponge_digest_rows(rows: torch.Tensor, hash_fun: str = "poseidon2") -> torch.Tensor:
+    """Cell digests of (cell_size, B) uint8 byte rows -> (4, 4, B): byte
+    encode and rate-8 sponge in one launch.  rows may be any strided view
+    (the PRNG's rows, or a (B, cell_size).T view of cells); the kernel reads
+    it in place."""
+    if rows.device.type == "cpu":
+        return plain.sponge_digest_rows(hash_fun, rows)
+    build.require_cuda(rows, "sponge_digest_rows", torch.uint8, (None, None))
+    cell_size, n = rows.shape
+    out = torch.empty((4, NL, n), dtype=torch.int32, device=rows.device)
+    dev, stream = build.launch_args(rows)
+    err = build.load().cspc_gl_sponge8_rows(
+        _hash_id(hash_fun), _ptr(rows), rows.stride(0), rows.stride(1), cell_size, _ptr(out), n,
+        dev, stream,
+    )
+    build.check(err, f"goldilocks {hash_fun} sponge kernel (byte rows)")
     build.LAUNCHES[_SPONGE_COUNTER[hash_fun]] += 1
     return out

@@ -3,7 +3,8 @@ keyed digest compression and rate-8 sponge, in plain torch.
 
 Port of codex_storage_proofs_circuits_tpu/ops/gl_core.py and
 ops/goldilocks_jnp.py, and the plain version of the CUDA kernels K4
-(Poseidon2-GL), K5 (Monolith) and K6 (rate-8 sponge) in ops/goldilocks_cuda.py.
+(Poseidon2-GL), K5 (Monolith) and K6 (rate-8 sponge, and the cell digest
+from byte rows) in ops/goldilocks_cuda.py.
 
 Public layouts are the JAX package's: a felt batch is (4, B), a state
 (12, 4, B), a digest batch (4, 4, B) and a felt sequence (n, 4, B), each a
@@ -28,6 +29,7 @@ import torch
 
 from ..fields import goldilocks as G
 from ..fields.gl_tables import SPONGE_IV, external_matrix
+from . import gl_encode
 
 NL = 4  # 16-bit limbs per felt
 LB = 16
@@ -295,3 +297,10 @@ def sponge_digest_felts(hash_fun: str, felts: torch.Tensor) -> torch.Tensor:
     for blk in blocks:
         s = core(torch.cat([_add(s[:, :RATE], blk), s[:, RATE:]], 1))
     return _canon(s[:, :4]).transpose(0, 1).to(felts.dtype)
+
+
+def sponge_digest_rows(hash_fun: str, rows: torch.Tensor) -> torch.Tensor:
+    """Cell digests of (cell_size, B) byte rows (byte i of every cell in row
+    i; any integer dtype and strides) -> (4, 4, B): the 62-byte chunk encode
+    with `10*` byte padding, then the rate-8 sponge."""
+    return sponge_digest_felts(hash_fun, gl_encode.encode_rows(rows))

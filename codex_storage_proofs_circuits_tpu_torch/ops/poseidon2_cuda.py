@@ -2,10 +2,13 @@
 K2 (rate-2 sponge), csrc/poseidon2_bn254.cu.
 
 Port of codex_storage_proofs_circuits_tpu/ops/poseidon2_pallas.py
-(`permutation`, `compress`, `sponge2_absorb`).  A CUDA tensor launches the
-kernel; a CPU tensor goes to the plain version (ops/poseidon2_plain.py).
-Each launch adds one to kernels.build.LAUNCHES["perm"] or ["sponge2"].
-Planes are int32 16-bit limbs in canonical Montgomery form (< P).
+(`permutation`, `compress`, `sponge2_absorb`), and `sponge2_rows`, the
+whole cell-hash step from byte rows in one K2 launch.  A CUDA tensor
+launches the kernel; a CPU tensor goes to the plain version
+(ops/poseidon2_plain.py).  Each launch adds one to
+kernels.build.LAUNCHES["perm"], ["sponge2"] (byte rows) or
+["sponge2_planes"] (limb planes).  Planes are int32 16-bit limbs in
+canonical Montgomery form (< P).
 """
 
 from __future__ import annotations
@@ -76,5 +79,24 @@ def sponge2_absorb(blocks: torch.Tensor) -> torch.Tensor:
     dev, stream = build.launch_args(blocks)
     err = build.load().cspc_p2_sponge2(_ptr(blocks), nb, _ptr(out), n, dev, stream)
     build.check(err, "poseidon2 sponge2 kernel")
+    build.LAUNCHES["sponge2_planes"] += 1
+    return out
+
+
+def sponge2_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Cell hashes of (cell_size, B) uint8 byte rows -> (NL, B) Montgomery:
+    byte encode, Montgomery form, felt padding and sponge in one launch.
+    rows may be any strided view (the PRNG's rows, or a (B, cell_size).T
+    view of cells); the kernel reads it in place."""
+    if rows.device.type == "cpu":
+        return plain.sponge2_rows(rows)
+    build.require_cuda(rows, "sponge2_rows", torch.uint8, (None, None))
+    cell_size, n = rows.shape
+    out = torch.empty((NL, n), dtype=torch.int32, device=rows.device)
+    dev, stream = build.launch_args(rows)
+    err = build.load().cspc_p2_sponge2_rows(
+        _ptr(rows), rows.stride(0), rows.stride(1), cell_size, _ptr(out), n, dev, stream
+    )
+    build.check(err, "poseidon2 sponge2 kernel (byte rows)")
     build.LAUNCHES["sponge2"] += 1
     return out

@@ -1,9 +1,9 @@
 """Batched Poseidon2 t=3 permutation / compression / sponge, in plain torch.
 
 Port of codex_storage_proofs_circuits_tpu/ops/poseidon2_jnp.py and the plain
-version of the CUDA kernels K1 (permutation) and K2 (rate-2 sponge) in
-ops/poseidon2_cuda.py.  A batch of states is (3, NL, B): 3 lanes x 16 limb
-planes x batch, all in Montgomery form.
+version of the CUDA kernels K1 (permutation) and K2 (rate-2 sponge, and
+the cell hash from byte rows) in ops/poseidon2_cuda.py.  A batch of states
+is (3, NL, B): 3 lanes x 16 limb planes x batch, all in Montgomery form.
 
 Round schedule of the reference circuit (poseidon2_perm.circom:163-198):
 initial linear layer, 4 external rounds, 56 internal rounds, 4 external
@@ -19,6 +19,7 @@ import torch
 
 from ..fields import bn254
 from .. import convert
+from . import encode as E
 from . import limbs as L
 
 NL = L.NL
@@ -142,3 +143,16 @@ def pad_felts_rate2(felts: torch.Tensor) -> torch.Tensor:
 def sponge2_hash(felts: torch.Tensor) -> torch.Tensor:
     """Batched sponge2 of (nfelts, NL, B) Montgomery felts -> (NL, B)."""
     return sponge2_absorb(pad_felts_rate2(felts))
+
+
+def to_mont_stack(felts: torch.Tensor) -> torch.Tensor:
+    """(K, NL, B) canonical -> Montgomery, as one batched (NL, K, B) multiply."""
+    return L.to_mont(felts.transpose(0, 1)).transpose(0, 1).contiguous()
+
+
+def sponge2_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Cell hashes of (cell_size, B) byte rows (byte i of every cell in row
+    i; any integer dtype and strides) -> (NL, B) Montgomery: the byte encode
+    with `10*` padding, the Montgomery form, the felt padding and the rate-2
+    sponge, as JAX models/hashing.py::hash_cells_mont on the encoded cells."""
+    return sponge2_absorb(pad_felts_rate2(to_mont_stack(E.encode_rows(rows))))

@@ -1,5 +1,8 @@
 """The CUDA kernels K1-K6 against their plain torch versions, and the
-slices on the card against the oracle, bit-exact.
+slices on the card against the oracle, bit-exact.  K2 and K6 are held on
+both their entries: byte rows (the main path's, in the PRNG's contiguous
+(cell_size, B) layout and as a (B, cell_size).T view) and limb planes,
+each with its own launch count.
 
 Every test here needs a CUDA device (and nvcc) and skips without one.  The
 file imports no jax, so it also runs on a machine with the card and no jax:
@@ -66,10 +69,46 @@ def test_permutation_and_compress_match_plain(cuda):
 def test_sponge2_matches_plain(cuda):
     rng = np.random.default_rng(42)
     blocks = _canonical(rng, (5, 2, 16, 130))
+    before = build.LAUNCHES["sponge2_planes"]
     got = TC.sponge2_absorb(blocks.to(cuda))
     assert torch.equal(got.cpu(), TP.sponge2_absorb(blocks))
+    assert build.LAUNCHES["sponge2_planes"] == before + 1
     with pytest.raises(ValueError):
         TC.sponge2_absorb(blocks.to(cuda).transpose(0, 1))  # not (nb, 2, 16, B)
+
+
+CELL_SIZES = [30, 31, 61, 62, 2048]  # both felt parities, markers opening a felt / chunk
+
+
+def _cells(cell_size: int) -> np.ndarray:
+    # 257 cells: not a multiple of the 128-thread block
+    cells = np.random.default_rng(cell_size).integers(0, 256, (257, cell_size), dtype=np.uint8)
+    cells[0] = 0xFF
+    return cells
+
+
+@pytest.mark.parametrize("cell_size", CELL_SIZES)
+def test_sponge2_rows_matches_plain(cuda, cell_size):
+    cells = _cells(cell_size)
+    want = TP.sponge2_rows(torch.from_numpy(cells.T.copy()))
+    before = build.LAUNCHES["sponge2"]
+    for rows in (torch.from_numpy(cells.T.copy()).to(cuda), torch.from_numpy(cells).to(cuda).T):
+        assert torch.equal(TC.sponge2_rows(rows).cpu(), want)
+    assert build.LAUNCHES["sponge2"] == before + 2
+    with pytest.raises(ValueError):  # bytes only
+        TC.sponge2_rows(torch.from_numpy(cells.T.copy()).to(cuda, torch.int32))
+
+
+@pytest.mark.parametrize("cell_size", CELL_SIZES)
+@pytest.mark.parametrize("hash_fun", ["poseidon2", "monolith"])
+def test_gl_sponge_rows_matches_plain(cuda, hash_fun, cell_size):
+    cells = _cells(cell_size)
+    counter = {"poseidon2": "gl_sponge8", "monolith": "mono_sponge8"}[hash_fun]
+    want = TGP.sponge_digest_rows(hash_fun, torch.from_numpy(cells.T.copy()))
+    before = build.LAUNCHES[counter]
+    for rows in (torch.from_numpy(cells.T.copy()).to(cuda), torch.from_numpy(cells).to(cuda).T):
+        assert torch.equal(TGC.sponge_digest_rows(rows, hash_fun).cpu(), want)
+    assert build.LAUNCHES[counter] == before + 2
 
 
 def test_prng_matches_plain_and_oracle(cuda):
@@ -118,7 +157,7 @@ def test_gl_permutation_and_compress_match_plain(cuda, hash_fun):
 @pytest.mark.parametrize("hash_fun", ["poseidon2", "monolith"])
 def test_gl_sponge_matches_plain(cuda, hash_fun):
     rng = np.random.default_rng(44)
-    counter = {"poseidon2": "gl_sponge8", "monolith": "mono_sponge8"}[hash_fun]
+    counter = {"poseidon2": "gl_sponge8_planes", "monolith": "mono_sponge8_planes"}[hash_fun]
     before = build.LAUNCHES[counter]
     for n in (1, 7, 8, 15, 16, 272):
         felts = _gl_planes(rng, (n, 4, 130))

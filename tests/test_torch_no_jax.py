@@ -1,8 +1,8 @@
 """The port imports neither jax nor the JAX package: every module of the port
-package, and chip_smoke.py, load in a fresh interpreter with jax and every
-module of codex_storage_proofs_circuits_tpu absent from sys.modules (the
-machine with the GPU has no jax, and the port keeps its own copies of the
-JAX package's jax-free modules)."""
+package, chip_smoke.py and the scripts of tools_torch/ load in a fresh
+interpreter with jax and every module of codex_storage_proofs_circuits_tpu
+absent from sys.modules (the machine with the GPU has no jax, and the port
+keeps its own copies of the JAX package's jax-free modules)."""
 
 import os
 import pkgutil
@@ -31,7 +31,7 @@ def test_port_modules_are_found():
 
 
 def test_port_imports_no_jax():
-    mods = _port_modules() + ["chip_smoke"]
+    mods = _port_modules() + ["chip_smoke", "tools_torch.chunk_sweep", "tools_torch.time_against"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

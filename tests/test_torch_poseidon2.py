@@ -117,6 +117,12 @@ def test_constants_header_matches_fields():
     hdr = build.constants_header()
     assert "#define FR_PINV 0xefffffffu" in hdr
     assert (-pow(F.P, -1, 1 << 32)) % (1 << 32) == 0xEFFFFFFF
-    p_words = ", ".join(f"0x{(F.P >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(8))
-    assert f"FR_P[8] = {{{p_words}}};" in hdr
-    assert hdr.count("0x") == 1 + 8 + 8 * 3 * 8 + 56 * 8 + 4 * 8 + 8
+    def words(x):
+        return ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(8))
+
+    assert f"#define FR_P_WORDS {{{words(F.P)}}}" in hdr
+    assert f"#define FR_2P_WORDS {{{words(2 * F.P)}}}" in hdr
+    assert f"#define FR_ONE_WORDS {{{words(F.to_mont(1))}}}" in hdr
+    assert f"#define FR_R2_WORDS {{{words(F.R2_MONT)}}}" in hdr
+    assert F.R2_MONT == (1 << 512) % F.P
+    assert hdr.count("0x") == 1 + 4 * 8 + 8 * 3 * 8 + 56 * 8 + 4 * 8 + 8
