@@ -8,18 +8,22 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases:
   1. device: the card's name, power limit and maximum SM clock (nvidia-smi);
   2. build: nvcc builds the kernels of csrc/ (build seconds, ptxas report),
-     and the static instruction mix of the K2 and K6 byte-row kernels
-     (cuobjdump -sass): the share of integer multiplies;
+     the static instruction mix of the K2 and K6 byte-row kernels
+     (cuobjdump -sass): the share of integer multiplies, and the wide
+     multiplies (IMAD.WIDE) a Monolith permutation executes;
   3. each kernel (K1-K6) against its plain torch version on the card,
      bitwise, at the shapes the main paths give it (one chunk of 2^18
      cells of 2048 bytes and one layer of its tree), with the times of both
      and the least time the card could take for the same work (bound_ms;
-     a kernel's time is its device time per launch, kernels/timing.py).  K2
+     a kernel's time is its device time per call, kernels/timing.py).  K2
      and K6 (both cores) are held on their byte-row entries, which the main
      paths run, and on their limb-plane entries (the JAX parity API), with
      the time of the path the byte-row entries replace: the plain byte
      encode (and for BN254 the Montgomery form and felt padding), then the
-     limb-plane kernel;
+     limb-plane kernel.  K4 and K5 are held on the subtree entry of the
+     main paths (a whole 2^18-digest chunk tree, two launches), timed
+     beside the 18 per-layer compression launches it replaces, and on
+     their permutation and compression entries (the widest layer);
   4. BN254: the port CLI on a small dataset (5 slots x 256 cells), which
      must equal the pure-Python oracle exactly;
   5. BN254: the port CLI on two 1 GB fake-data slots (2^19 cells of 2048
@@ -37,7 +41,8 @@ Phases:
 Each main path (phase 5, and phase 7 once per hash) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
 that path must have launched, and no other kernel, nor the limb-plane
-entries of K2 and K6 (counted apart from their byte-row entries).
+entries of K2 and K6 (counted apart from their byte-row entries); a GL
+path launches K4 or K5 (the subtree kernel) at most 12 times.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Any failed check raises: the exit code is then non-zero and there is no
@@ -59,6 +64,7 @@ import numpy as np
 import torch
 
 from codex_storage_proofs_circuits_tpu_torch.fields import bn254
+from codex_storage_proofs_circuits_tpu_torch.fields import goldilocks as GLF
 from codex_storage_proofs_circuits_tpu_torch.oracle import goldilocks as GO
 from codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline import (
     check_proof_input_gl,
@@ -102,8 +108,8 @@ KERNELS = {
     "perm": ("poseidon2_bn254_perm", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:297"),
     "sponge2": ("poseidon2_bn254_sponge2", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:324"),
     "prng": ("fake_prng_rows", _SRC + "fake_prng.cu", _TPU + "fake_prng.py:217"),
-    "gl_perm": ("poseidon2_gl_perm", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:193"),
-    "mono_perm": ("monolith_perm", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:164"),
+    "gl_perm": ("poseidon2_gl_tree", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:193"),
+    "mono_perm": ("monolith_tree", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:164"),
     "gl_sponge8": ("poseidon2_gl_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
     "mono_sponge8": ("monolith_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
 }
@@ -112,6 +118,8 @@ PATH_COUNTERS = {  # the kernels each main path must launch, and no other
     "poseidon2": ("prng", "gl_perm", "gl_sponge8"),
     "monolith": ("prng", "mono_perm", "mono_sponge8"),
 }
+MAX_TREE_LAUNCHES = 12  # K4 / K5 launches of a GL path: 2 slots x (2 chunks x 2 + 1 top)
+CHUNK_KEYS = 0b100001  # key 1 at depths 0 and 5 of a chunk: the main path's schedule
 
 # The card's peak rates for the bound (NVIDIA H100 SXM data sheet): device
 # memory 3.35 TB/s; 32-bit integer multiply-adds 64 per clock on each of 132
@@ -160,11 +168,13 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def compare(name: str, kernel, plain, reps: int, results: dict, work=None) -> None:
+def compare(name: str, kernel, plain, reps: int, results: dict, work=None, timed=None) -> None:
     """Kernel against plain version on the same inputs: bitwise equal, both
-    timed (the kernel by its device time per launch, kernels/timing.py).
-    work = (bytes, multiply instructions) of one kernel call, for its
-    bound; the last call compared under a name is the one reported."""
+    timed (the kernel by its device time per call, kernels/timing.py: of
+    timed(), the kernel's call itself where kernel() also joins its
+    outputs into one tensor).  work = (bytes, multiply instructions) of one
+    kernel call, for its bound; the last call compared under a name is the
+    one reported."""
     got = kernel()
     torch.cuda.synchronize()
     want = None
@@ -175,7 +185,7 @@ def compare(name: str, kernel, plain, reps: int, results: dict, work=None) -> No
 
     plain_ms = events_ms(run_plain, 1, warmup=False)  # the plain versions take seconds
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-    ms = device_ms(kernel, reps)
+    ms = device_ms(timed or kernel, reps)
     log(f"  {name}: shape {tuple(got.shape)} max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.1f} ms")
     if got.shape != want.shape or err != 0:
         raise AssertionError(f"{name}: kernel and plain version disagree")
@@ -255,16 +265,19 @@ def phase_kernels(results: dict) -> None:
     compare("sponge2", lambda: P2C.sponge2_rows(rows), lambda: P2.sponge2_rows(rows), 3, results,
             (nbytes(rows) + 16 * 4 * CHUNK, CHUNK * (nb * BN254_PERM + nf * BN254_MUL)))
 
-    # K4 / K5: the KAT state [0..11] against the oracle, random states, and
-    # the key-1 compression of one main-path layer (2^16 -> 2^15 digests);
-    # K6 with each core over the chunk's encoded cells (272 felts a cell),
-    # the path its byte-row entry replaces (plain encode, then the felt
-    # kernel), and last the byte-row entry over the rows (34 chunks, then the
-    # padding block: 35 permutations)
+    # K4 / K5: the KAT state [0..11] against the oracle, random states, the
+    # key-1 compression of a main-path chunk's widest layer (2^18 -> 2^17
+    # digests) and, as the main path runs them, all 18 layers of that
+    # chunk's tree (key schedule (0, 5)) by the subtree entry, beside the 18
+    # one-layer launches it replaces; K6 with each core over the chunk's
+    # encoded cells (272 felts a cell), the path its byte-row entry replaces
+    # (plain encode, then the felt kernel), and last the byte-row entry over
+    # the rows (34 chunks, then the padding block: 35 permutations)
     felts = GE.encode_rows(rows)
     nch = GE.n_chunks(CELL)
     digests = torch.from_numpy(rng.integers(0, 1 << 16, (4, 4, CHUNK), dtype=np.int32)).cuda()
     kat = torch.stack([GP.pack([v], dev) for v in range(12)])
+    depth = CHUNK.bit_length() - 1
     for hash_fun in HASHES:
         perm, sponge = ("gl_perm", "gl_sponge8") if hash_fun == "poseidon2" else (
             "mono_perm", "mono_sponge8")
@@ -273,12 +286,36 @@ def phase_kernels(results: dict) -> None:
             raise AssertionError(f"{perm}: permutation of [0..11] differs from the oracle")
         log(f"  {perm}: KAT ok")
         states = torch.from_numpy(rng.integers(0, 1 << 16, (12, 4, 4096), dtype=np.int32)).cuda()
-        compare(perm, lambda: GC.permutation(states, hash_fun),
+        compare(f"{perm}:layer", lambda: GC.permutation(states, hash_fun),
                 lambda: GP.permutation(states, hash_fun), 20, results)
         x, y = digests[:, :, 0::2], digests[:, :, 1::2]
-        compare(perm, lambda: GC.compress(x, y, 1, hash_fun),
+        compare(f"{perm}:layer", lambda: GC.compress(x, y, 1, hash_fun),
                 lambda: GP.compress_batch(hash_fun, 1, x, y), 20, results,
                 (nbytes(digests) + nbytes(x), CHUNK // 2 * GL_PERM[hash_fun]))
+
+        def tree():
+            return GC.tree_layers(digests, hash_fun, depth, CHUNK_KEYS)
+
+        def per_layer():
+            layers = [digests]
+            for d in range(depth):
+                cur = layers[-1]
+                layers.append(GC.compress(cur[:, :, 0::2], cur[:, :, 1::2],
+                                          (CHUNK_KEYS >> d) & 1, hash_fun))
+            return layers
+
+        def joined(layers):
+            return torch.cat([lyr.reshape(-1) for lyr in layers])
+
+        compare(perm, lambda: joined(tree()),
+                lambda: joined(GP.tree_layers(hash_fun, digests, depth, CHUNK_KEYS)), 10, results,
+                (nbytes(digests) + 16 * 4 * (CHUNK - 1), (CHUNK - 1) * GL_PERM[hash_fun]),
+                timed=tree)
+        if not torch.equal(joined(tree()), joined(per_layer()[1:])):
+            raise AssertionError(f"{perm}: the subtree entry differs from the per-layer launches")
+        per_layer_ms = device_ms(per_layer, 10)
+        results[perm]["per_layer_ms"] = per_layer_ms
+        log(f"    the {depth} per-layer launches it replaces: {per_layer_ms:.4f} ms")
         compare(f"{sponge}:planes", lambda: GC.sponge_digest_felts(felts, hash_fun),
                 lambda: GP.sponge_digest_felts(hash_fun, felts), 3, results,
                 (nbytes(felts) + 16 * 4 * CHUNK, CHUNK * (nch + 1) * GL_PERM[hash_fun]))
@@ -288,8 +325,41 @@ def phase_kernels(results: dict) -> None:
         compare(sponge, lambda: GC.sponge_digest_rows(rows, hash_fun),
                 lambda: GP.sponge_digest_rows(hash_fun, rows), 3, results,
                 (nbytes(rows) + 16 * 4 * CHUNK, CHUNK * (nch + 1) * GL_PERM[hash_fun]))
-    log(f"  (GL widths: states 4096, compress {CHUNK} -> {CHUNK // 2}, sponge {CHUNK} cells"
-        f" of {CELL} bytes, {felts.shape[0]} felts)")
+    log(f"  (GL widths: states 4096, compress {CHUNK} -> {CHUNK // 2}, tree {CHUNK} -> 1,"
+        f" sponge {CHUNK} cells of {CELL} bytes, {felts.shape[0]} felts)")
+
+
+def cuobjdump_sass(lib: str) -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+
+
+_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def monolith_imad_wide(sass: str) -> dict:
+    """IMAD.WIDE (32 x 32 -> 64-bit multiply-adds) a Monolith permutation
+    executes, from the SASS of the K5 compression kernel (gl_perm_kernel<1>,
+    one permutation a thread): the instructions of its round loop (the
+    body between the one backward branch and its target) count once a
+    round, the others once.  Address arithmetic is included."""
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "gl_perm_kernel" not in name or "ILi1E" not in name:
+            continue
+        ops = [(int(a, 16), op, rest) for a, op, rest in _SASS_OP.findall(chunk)]
+        loops = [(int(m.group(1), 16), a) for a, op, rest in ops if op.startswith("BRA")
+                 for m in [re.search(r"0x([0-9a-f]+)", rest)] if m and int(m.group(1), 16) < a]
+        wide = [a for a, op, _ in ops if op.startswith("IMAD.WIDE")]
+        if len(loops) != 1:
+            return {"static": len(wide), "loops": len(loops)}
+        lo, hi = loops[0]
+        inside = sum(lo <= a <= hi for a in wide)
+        return {"outside_loop": len(wide) - inside, "round_loop": inside,
+                "per_permutation": len(wide) - inside + GLF.MONOLITH_ROUNDS * inside}
+    raise AssertionError("no Monolith compression kernel in the SASS")
 
 
 def sass_mix() -> None:
@@ -300,12 +370,9 @@ def sass_mix() -> None:
     shifts issued on the multiply pipe) and the most frequent opcodes.  The
     round loops are rolled and the S-box is a called function, which the
     dump lists inside each kernel's body, so the body's mix is close to
-    what the kernel issues."""
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
-    lib = os.path.join(build.build_dir(), build.LIB_NAME)
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
-                          check=True).stdout
+    what the kernel executes.  Then the IMAD.WIDE of a Monolith permutation
+    (monolith_imad_wide)."""
+    sass = cuobjdump_sass(os.path.join(build.build_dir(), build.LIB_NAME))
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         if "p2_sponge2_kernel" in name and "ByteRows" in name:
@@ -315,7 +382,7 @@ def sass_mix() -> None:
             label = f"K6 sponge8 rows, {core} core (kernel body)"
         else:
             continue
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
+        ops = [op for _, op, _ in _SASS_OP.findall(chunk)]
         muls = [o for o in ops if o.startswith("IMAD")
                 and not o.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL"))]
         fma_pipe = [o for o in ops if o.startswith("IMAD")]
@@ -326,6 +393,8 @@ def sass_mix() -> None:
         log(f"  {label}: {len(ops)} instructions, integer multiplies {len(muls)}"
             f" ({100 * len(muls) / max(1, len(ops)):.1f} %), all IMAD forms {len(fma_pipe)}"
             f" ({100 * len(fma_pipe) / max(1, len(ops)):.1f} %), most frequent {json.dumps(most)}")
+    log(f"  IMAD.WIDE of a Monolith permutation (K5 compression kernel):"
+        f" {json.dumps(monolith_imad_wide(sass))}")
 
 
 def phase_small(tmp: str) -> None:
@@ -360,6 +429,9 @@ def check_launches(path: str) -> dict:
     stray = [k for k, n in launches.items() if n and k not in PATH_COUNTERS[path]]
     if stray:
         raise AssertionError(f"{path}: kernels off the main path were launched: {stray}")
+    trees = [k for k in ("gl_perm", "mono_perm") if launches[k] > MAX_TREE_LAUNCHES]
+    if trees:
+        raise AssertionError(f"{path}: more than {MAX_TREE_LAUNCHES} tree launches: {trees}")
     return launches
 
 
@@ -505,8 +577,9 @@ def profile_root(fn) -> dict:
             return "K3 fake_prng"
         if "gl_sponge8_kernel" in name:
             return "K6 sponge8"
-        if "gl_perm_kernel" in name:  # the template argument is the hash
-            return "K5 mono_perm" if "<1>" in name or "ILi1E" in name else "K4 gl_perm"
+        # the first template argument is the hash
+        if "gl_perm_kernel" in name or "gl_tree_kernel" in name:
+            return "K5 mono_perm" if "<1" in name or "ILi1E" in name else "K4 gl_perm"
         return "other: torch passes, copies"
 
     groups: dict = {}
@@ -632,6 +705,12 @@ def main() -> int:
         r = results[key]
         log(f"  {key}: kernel {r['ms']:.4f} ms, with the plain passes before it"
             f" {r['unfused_ms']:.4f} ms; byte-row entry {results[key.split(':')[0]]['ms']:.4f} ms")
+    for key in ("gl_perm", "mono_perm"):
+        r, lay = results[key], results[f"{key}:layer"]
+        log(f"  {key}: chunk tree by the subtree entry {r['ms']:.4f} ms (bound {r['bound_ms']:.4f},"
+            f" {100 * r['bound_ms'] / r['ms']:.1f} %), by {CHUNK.bit_length() - 1} per-layer"
+            f" launches {r['per_layer_ms']:.4f} ms; widest layer {lay['ms']:.4f} ms (bound"
+            f" {lay['bound_ms']:.4f}, {100 * lay['bound_ms'] / lay['ms']:.1f} %)")
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         r = results[key]

@@ -1,7 +1,8 @@
 // Goldilocks (p = 2^64 - 2^32 + 1) hashes on Hopper: K4 (Poseidon2-GL t=12
 // permutation / keyed digest compression), K5 (the same with Monolith-64)
 // and K6 (rate-8 sponge, with either permutation: the whole cell-digest
-// step, cell bytes in).
+// step, cell bytes in).  On the main path K4 and K5 are the subtree kernel,
+// which makes many Merkle tree levels a launch.
 //
 // Replaces the Pallas TPU kernels of
 // codex_storage_proofs_circuits_tpu/ops/goldilocks_pallas.py:
@@ -11,29 +12,31 @@
 //       together with the byte encode that feeds it (JAX ops/gl_encode.py)
 // The plain torch versions are ops/goldilocks_plain.py; the wrappers are
 // ops/goldilocks_cuda.py.  The hash is a template parameter, so each
-// (kernel, hash) pair is its own instantiation with its own launch count.
+// (kernel, hash) pair is its own instantiation.
 //
 // Semantics (oracle/goldilocks.py): Poseidon2-GL is the initial external
 // layer circ(2*M4, M4, M4), 4 external rounds (12 x^7 S-boxes), 22 internal
 // rounds (x^7 on lane 0, then J + diag(mu - 1)), 4 external rounds.
 // Monolith-64 is an initial Concrete, then 6 rounds of Bars (a bytewise map
 // of the canonical values of lanes 0..3), Bricks (x_i += x_{i-1}^2 of the
-// input lanes), Concrete (a 12 x 12 small-integer matrix) and round
-// constants.  The sponge starts from zeros with the capacity IV in lane 11,
-// adds each block of 8 felts into lanes 0..7 and permutes; the input gets
-// `10*` felt padding (a 1, then zeros to a multiple of 8).  A cell's bytes
-// get `10*` byte padding to a multiple of 62 bytes, and each 62-byte chunk
-// splits little-endian into 8 felts of 62 bits: one block.  A 2048-byte
-// cell is 34 chunks, then the padding block: 35 permutations.
+// input lanes), Concrete (a 12 x 12 small-integer circulant plus a
+// diagonal) and round constants.  The sponge starts from zeros with the
+// capacity IV in lane 11, adds each block of 8 felts into lanes 0..7 and
+// permutes; the input gets `10*` felt padding (a 1, then zeros to a
+// multiple of 8).  A cell's bytes get `10*` byte padding to a multiple of
+// 62 bytes, and each 62-byte chunk splits little-endian into 8 felts of 62
+// bits: one block.  A 2048-byte cell is 34 chunks, then the padding block:
+// 35 permutations.  A Merkle compression permutes (left digest, right
+// digest, key, 0, 0, 0) and keeps lanes 0..3.
 //
-// What bounds it here: 64-bit modular multiplies.  Poseidon2-GL is 736 of
-// them per permutation (8 x 48 in the external rounds, 22 x 16 in the
-// internal ones), Monolith 66 plus the small-integer Concrete sums; the
-// state is 12 words that stay in registers, and each thread reads its
-// cell's bytes and writes its digest once, so the integer multiply pipe
-// and the issue rate set the pace.  The design is one thread per state, the
-// 12 values as native uint64_t below 2^64 (made canonical at exit), and a
-// field core that issues few instructions:
+// What bounds it here: 64-bit modular multiplies, and for the tree the
+// latency of one permutation.  Poseidon2-GL is 736 products per
+// permutation (8 x 48 in the external rounds, 22 x 16 in the internal
+// ones), Monolith 66 squares plus the Concrete's shifts and adds; the state
+// is 12 words that stay in registers, so the integer multiply pipe and the
+// instruction rate set the pace.  The design is one thread per state (or three,
+// below), the 12 values as native uint64_t below 2^64 (made canonical at
+// exit), and a field core that runs few instructions:
 //  - a product is one PTX block of 32-bit multiply-adds (4 wide products,
 //    their carries in the chain; an addend rides in the chain for free, so
 //    the internal layer's s_i * d_i + sum and Monolith's Bricks reduce
@@ -45,14 +48,24 @@
 //    (block b of the output is M4 (x_b + x_0 + x_1 + x_2)), run on the
 //    32-bit halves of the lanes in 64-bit sums and joined and reduced once
 //    per lane, in place of a 12 x 12 multiply-add matvec;
-//  - Monolith's Concrete (entries <= 41) stays a matvec whose rows sum the
-//    32-bit halves in 64 bits and reduce once;
+//  - Monolith's Concrete is the cyclic convolution it is: 4-point sums and
+//    differences of the halves, three 3-point convolutions with small
+//    constants (powers of two up to sign for this matrix: shifts, no wide
+//    multiply) and the inverse sums, in place of 288 wide multiply-adds;
 //  - the round loops are rolled.  x^7 is one called function in K6, whose
 //    35 permutations a thread then run from a small loop body, and inlined
 //    in K4, a single permutation a thread: each measured the faster of the
 //    two on an H100 (PERF.md).  Unrolled rounds measured slower in both.
 //    With the product in asm, cicc compiles x^7 inlined into the rounds
 //    (a C++ product made cicc of CUDA 12.9 crash there).
+// The subtree kernel (gl_tree_kernel) reduces a tile of 2^11 digests 11
+// levels in one CTA, the levels above the first in shared memory, and one
+// CTA takes a layer of at most 2^11 digests to its roots: a 2^18-digest
+// chunk is two launches where it was 18.  Below some 2^14 compressions a
+// level waits on one permutation's latency, not on the card's width, so a
+// narrow Poseidon2-GL level runs each permutation on a trio of threads
+// (four lanes each, cross-block sums by warp shuffles), which shortens that
+// chain.
 // The TPU kernel's 16-bit limb planes, lazy ripple/fold and (48, BT)
 // limb-major rows answered the TPU vector unit's lack of a wide multiply
 // and are not carried over.
@@ -64,6 +77,7 @@
 // packed into one uint64_t, so a compression reads a layer's even and odd
 // columns in place.  Digests are written as canonical (4, 4, n) planes.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -232,23 +246,77 @@ __device__ __forceinline__ void external_layer(uint64_t s[12]) {
   for (int i = 0; i < 12; i++) s[i] = join_halves(h[0][i], h[1][i]);
 }
 
-// s <- M s for a 12 x 12 matrix of small non-negative integers (row sums
-// below 2^20): each row sums the 32-bit halves in 64 bits, then reduces once.
-__device__ __forceinline__ void small_matvec(uint64_t s[12],
-                                             const uint32_t (&m)[12][12]) {
-  uint64_t out[12];
+// Monolith's Concrete, M = circ(c) + diag(d) (fields/goldilocks.py), as
+// the cyclic convolution it is, on the 32-bit halves of the lanes.  Lane i
+// sits at (i mod 4, i mod 3) (i = 9a + 4b mod 12), so the length-12
+// convolution is a 4 x 3 two-dimensional one.  Along the 4-axis it splits
+// into the rings Z (at s = 1), Z (s = -1) and Z[s]/(s^2 + 1) by sums and
+// differences; in each ring it is a 3-point cyclic convolution with the
+// transformed first column of c, whose values (scaled by the inverse
+// transform's 1/4, and 1/2 in the complex ring, so all integers; derived in
+// kernels/build.py) are the GL_MONO_CONC_* tables: for this matrix 1, 2, 4,
+// 8, 16 or 32 up to sign, shifts and adds with no wide multiply; then the
+// inverse sums.  All in uint64_t modulo 2^64: each output is the exact row
+// sum (below 2^41), so the wrap-arounds of the signed steps cancel.
+__host__ __device__ constexpr int crt12(int a, int b) { return (9 * a + 4 * b) % 12; }
+
+__device__ __forceinline__ void concrete_half(const uint64_t x[12], uint64_t y[12]) {
+  constexpr int64_t k1[3] = GL_MONO_CONC_K1, km[3] = GL_MONO_CONC_KM;
+  constexpr int64_t kr[3] = GL_MONO_CONC_KR, ki[3] = GL_MONO_CONC_KI;
+  uint64_t p1[3], pm[3], pr[3], pi[3];
 #pragma unroll
-  for (int r = 0; r < 12; r++) {
-    uint64_t lo = 0, hi = 0;
-#pragma unroll
-    for (int c = 0; c < 12; c++) {
-      lo += (uint64_t)m[r][c] * (s[c] & 0xFFFFFFFFULL);
-      hi += (uint64_t)m[r][c] * (s[c] >> 32);
-    }
-    out[r] = join_halves(lo, hi);
+  for (int b = 0; b < 3; b++) {
+    const uint64_t v0 = x[crt12(0, b)], v1 = x[crt12(1, b)];
+    const uint64_t v2 = x[crt12(2, b)], v3 = x[crt12(3, b)];
+    const uint64_t e = v0 + v2, o = v1 + v3;
+    p1[b] = e + o;
+    pm[b] = e - o;
+    pr[b] = v0 - v2;
+    pi[b] = v1 - v3;
   }
 #pragma unroll
-  for (int r = 0; r < 12; r++) s[r] = out[r];
+  for (int b = 0; b < 3; b++) {
+    uint64_t z1 = 0, zm = 0, zr = 0, zi = 0;
+#pragma unroll
+    for (int j = 0; j < 3; j++) {
+      const int i = (b - j + 3) % 3;
+      z1 += (uint64_t)k1[j] * p1[i];
+      zm += (uint64_t)km[j] * pm[i];
+      zr += (uint64_t)kr[j] * pr[i] - (uint64_t)ki[j] * pi[i];
+      zi += (uint64_t)kr[j] * pi[i] + (uint64_t)ki[j] * pr[i];
+    }
+    const uint64_t e = z1 + zm, o = z1 - zm;
+    y[crt12(0, b)] = e + zr;
+    y[crt12(1, b)] = o + zi;
+    y[crt12(2, b)] = e - zr;
+    y[crt12(3, b)] = o - zi;
+  }
+}
+
+// s <- M s, and with kRound the round constants of round r added to the
+// exact row sums' halves before the one reduction (a third operand of the
+// adds), in place of a modular addition a lane.
+template <bool kRound>
+__device__ __forceinline__ void concrete(uint64_t s[12], int r) {
+  constexpr uint64_t diag[12] = GL_MONO_CONC_DIAG;
+  uint64_t h[2][12], y[2][12];
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    h[0][i] = s[i] & 0xFFFFFFFFULL;
+    h[1][i] = s[i] >> 32;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; half++) {
+    concrete_half(h[half], y[half]);
+#pragma unroll
+    for (int i = 0; i < 12; i++) {
+      if (diag[i]) y[half][i] += diag[i] * h[half][i];
+      if constexpr (kRound)
+        y[half][i] += half ? GL_MONO_RC[r][i] >> 32 : GL_MONO_RC[r][i] & 0xFFFFFFFFULL;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 12; i++) s[i] = join_halves(y[0][i], y[1][i]);
 }
 
 template <bool kCall>
@@ -283,6 +351,76 @@ __device__ __forceinline__ void poseidon2_gl(uint64_t s[12]) {
   for (int r = GL_P2_RF / 2; r < GL_P2_RF; r++) p2_external_round<kCall>(s, r);
 }
 
+// Poseidon2-GL on a trio: three threads of one warp share a state, thread
+// q holding lanes 4q..4q+3 (one M4 block), so each runs a third of the
+// S-boxes and internal-layer products of a permutation.  The external
+// layer's cross-block sums take two shuffles of each 32-bit half; an
+// internal round runs lane 0's S-box on thread 0, sums each thread's lanes,
+// and exchanges the three partial sums.  Every thread forms the same
+// value mod p (in its own order), so the outputs equal the one-thread
+// permutation's once canonical.
+struct Trio {
+  unsigned mask;  // the warp's lanes taking part
+  int q;          // this thread's block of lanes
+  int up, down;   // the lanes of the trio's threads q + 1 and q + 2 (mod 3)
+};
+
+__device__ __forceinline__ uint64_t shfl64(unsigned mask, uint64_t v, int src) {
+  return pack64(__shfl_sync(mask, (uint32_t)v, src), __shfl_sync(mask, (uint32_t)(v >> 32), src));
+}
+
+__device__ __forceinline__ void external_layer_trio(uint64_t s[4], const Trio& t) {
+  uint64_t h[2][4];
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    h[0][i] = s[i] & 0xFFFFFFFFULL;
+    h[1][i] = s[i] >> 32;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; half++) {
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      const uint32_t v = (uint32_t)h[half][j];
+      h[half][j] += (uint64_t)v + __shfl_sync(t.mask, v, t.up) + __shfl_sync(t.mask, v, t.down);
+    }
+    m4(h[half]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; i++) s[i] = join_halves(h[0][i], h[1][i]);
+}
+
+__device__ __forceinline__ void p2_external_round_trio(uint64_t s[4], const Trio& t, int r) {
+#pragma unroll
+  for (int i = 0; i < 4; i++) s[i] = x7(gl_add(s[i], GL_P2_EXT_RC[r][4 * t.q + i]));
+  external_layer_trio(s, t);
+}
+
+__device__ __forceinline__ void poseidon2_gl_trio(uint64_t s[4], const Trio& t) {
+  uint64_t diag[4];
+#pragma unroll
+  for (int i = 0; i < 4; i++) diag[i] = GL_P2_DIAG[4 * t.q + i];
+  external_layer_trio(s, t);
+#pragma unroll 1
+  for (int r = 0; r < GL_P2_RF / 2; r++) p2_external_round_trio(s, t, r);
+#pragma unroll 1
+  for (int k = 0; k < GL_P2_RP; k++) {
+    if (t.q == 0) s[0] = x7(gl_add(s[0], GL_P2_INT_RC[k]));
+    uint64_t lo = 0, hi = 0;  // this thread's lanes, lane 0 last
+#pragma unroll
+    for (int i = 3; i >= 0; i--) {
+      lo += s[i];
+      hi += (lo < s[i]);
+    }
+    const uint64_t part = gl_reduce128(lo, hi);
+    const uint64_t tot =
+        gl_add(gl_add(part, shfl64(t.mask, part, t.up)), shfl64(t.mask, part, t.down));
+#pragma unroll
+    for (int i = 0; i < 4; i++) s[i] = gl_mul_add(s[i], diag[i], tot);
+  }
+#pragma unroll 1
+  for (int r = GL_P2_RF / 2; r < GL_P2_RF; r++) p2_external_round_trio(s, t, r);
+}
+
 // Per-byte rotate left by k of the 8 bytes of x.
 template <int K>
 __device__ __forceinline__ uint64_t rotl_bytes(uint64_t x) {
@@ -298,17 +436,14 @@ __device__ __forceinline__ uint64_t bar64(uint64_t x) {
 }
 
 __device__ __forceinline__ void monolith(uint64_t s[12]) {
-  constexpr uint32_t concrete[12][12] = GL_MONO_CONCRETE;
-  small_matvec(s, concrete);
+  concrete<false>(s, 0);
 #pragma unroll 1
   for (int r = 0; r < GL_MONO_ROUNDS; r++) {
 #pragma unroll
     for (int i = 0; i < GL_MONO_BARS; i++) s[i] = gl_canon(bar64(gl_canon(s[i])));
 #pragma unroll
     for (int i = 11; i > 0; i--) s[i] = gl_mul_add(s[i - 1], s[i - 1], s[i]);
-    small_matvec(s, concrete);
-#pragma unroll
-    for (int i = 0; i < 12; i++) s[i] = gl_add(s[i], GL_MONO_RC[r][i]);
+    concrete<true>(s, r);
   }
 }
 
@@ -441,6 +576,113 @@ gl_sponge8_kernel(Src src, int32_t* __restrict__ out, long long n) {
   for (int i = 0; i < 4; i++) store_felt(out + i * 4 * n + b, n, gl_canon(s[i]));
 }
 
+// The subtree kernel: K4 / K5 on the main path.  A CTA takes `tile`
+// consecutive digests of the (4, 4, w) layer x (lane, limb and column
+// strides) and reduces them `levels` levels: the first level's keyed
+// compressions read x's column pairs from device memory, every later one
+// reads the level below from shared memory (packed uint64_t, lane-major,
+// two buffers taking turns), and every node of every level is written,
+// canonical, to that level's (4, 4, w >> j) plane in `out` (level 1 at out,
+// each next level right after the one before).  Level j uses key bit j - 1
+// of key_mask.  A level with more nodes than trios runs one permutation a
+// thread; a narrower Poseidon2-GL level runs one a trio, which shortens the
+// chain of each of the top levels, where a thread's permutation latency
+// sets the pace.  Monolith always runs one a thread.
+//
+// The constants were chosen on an H100 by tools_torch/tile_sweep.py (PERF.md):
+// a tile of 2^11 digests, so a 2^18-digest chunk is one wave of 128 CTAs of
+// 1024 threads (at most 64 registers) and then one CTA of 512 threads for
+// the top 7 levels; trios took a quarter off the Poseidon2-GL chunk tree.
+constexpr int kTreeTileLog = 11;  // levels (and log2 of the digests) of a CTA of the wide launch
+constexpr int kTreeThreads = 1 << (kTreeTileLog - 1);  // one per first-level compression
+constexpr bool kTrios = true;     // narrow Poseidon2-GL levels run a permutation a trio
+constexpr int kTopLog = 11;       // a layer of at most 2^11 digests is one CTA's
+constexpr int kTopThreads = 512;
+
+template <int H, int NT>
+__global__ void __launch_bounds__(NT)
+gl_tree_kernel(const int32_t* __restrict__ x, long long xls, long long xks, long long xcs,
+               int32_t* __restrict__ out, long long w, int levels, long long tile,
+               unsigned key_mask) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kTriosPerCta = NT / 32 * 10;  // ten trios a warp, lanes 30 and 31 idle
+  const long long base = (long long)blockIdx.x * tile;
+  const long long cnt = min(tile, w - base);
+  // two buffers: odd levels are written to the first, even ones to the second
+  const long long cap0 = tile / 2, cap1 = max(tile / 4, 1LL);
+  uint64_t* const buf0 = smem;
+  uint64_t* const buf1 = smem + 4 * cap0;
+  int32_t* lvl = out;
+  for (int j = 1; j <= levels; j++) {
+    const long long n = cnt >> j, gw = w >> j, gb = base >> j;
+    const uint64_t key = (key_mask >> (j - 1)) & 1u;
+    const bool odd = j & 1;
+    const uint64_t* src = odd ? buf1 : buf0;
+    const long long scap = odd ? cap1 : cap0;
+    uint64_t* dst = odd ? buf0 : buf1;
+    const long long dcap = odd ? cap0 : cap1;
+    // lane l of child c (0 or 1) of node i
+    auto child = [&](long long i, int c, int l) -> uint64_t {
+      const long long k = 2 * i + c;
+      return j == 1 ? load_felt(x + l * xls + (base + k) * xcs, xks) : src[l * scap + k];
+    };
+    auto emit = [&](long long i, const uint64_t* d) {
+#pragma unroll
+      for (int l = 0; l < 4; l++) {
+        const uint64_t v = gl_canon(d[l]);
+        if (j < levels) dst[l * dcap + i] = v;
+        store_felt(lvl + l * 4 * gw + gb + i, gw, v);
+      }
+    };
+    bool trio = false;
+    if constexpr (H == kPoseidon2 && kTrios) trio = n <= kTriosPerCta;
+    if (trio) {
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      const int m = (int)min(max(n - warp * 10LL, 0LL), 10LL);  // this warp's trios
+      if (lane < 3 * m) {
+        const int q = lane % 3, first = lane - q;
+        const Trio t{(1u << (3 * m)) - 1u, q, first + (q + 1) % 3, first + (q + 2) % 3};
+        const long long i = warp * 10LL + lane / 3;
+        uint64_t s[4];
+#pragma unroll
+        for (int l = 0; l < 4; l++) s[l] = q < 2 ? child(i, q, l) : (l == 0 ? key : 0);
+        poseidon2_gl_trio(s, t);
+        if (q == 0) emit(i, s);
+      }
+    } else {
+      for (long long i = threadIdx.x; i < n; i += NT) {
+        uint64_t s[12];
+#pragma unroll
+        for (int l = 0; l < 4; l++) {
+          s[l] = child(i, 0, l);
+          s[4 + l] = child(i, 1, l);
+        }
+        s[8] = key;
+        s[9] = s[10] = s[11] = 0;
+        permute<H, false>(s);
+        emit(i, s);
+      }
+    }
+    __syncthreads();
+    lvl += 16 * gw;
+  }
+}
+
+template <int H>
+cudaError_t launch_tree(const int32_t* x, long long xls, long long xks, long long xcs,
+                        int32_t* out, long long w, int levels, long long tile, unsigned key_mask,
+                        cudaStream_t st) {
+  const unsigned grid = (unsigned)((w + tile - 1) / tile);
+  const size_t smem = (size_t)(tile / 2 + std::max(tile / 4, 1LL)) * 4 * sizeof(uint64_t);
+  if (tile == w)
+    gl_tree_kernel<H, kTopThreads><<<grid, kTopThreads, smem, st>>>(
+        x, xls, xks, xcs, out, w, levels, tile, key_mask);
+  else
+    gl_tree_kernel<H, kTreeThreads><<<grid, kTreeThreads, smem, st>>>(
+        x, xls, xks, xcs, out, w, levels, tile, key_mask);
+  return cudaGetLastError();
+}
+
 inline unsigned n_blocks(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -482,6 +724,31 @@ int cspc_gl_perm(int hash, const int32_t* x, long long xls, long long xks, long 
           x, xls, xks, xcs, y, yls, yks, ycs, key, out, out_lanes, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The subtree kernel, one launch: reduces the (4, 4, w) layer x by as many
+// of `levels` levels as one launch takes (all of them when w <= 2^11, in
+// one CTA; else min(levels, 11) in CTAs of 2^11 digests), writing each
+// level's canonical (4, 4, w >> j) plane into out one after another, level
+// j with the key bit j - 1 of key_mask.  *done is set to the levels made.
+// w must be a multiple of 2^(levels made).
+int cspc_gl_tree(int hash, const int32_t* x, long long xls, long long xks, long long xcs,
+                 int32_t* out, long long w, int levels, unsigned key_mask, int* done, int device,
+                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((hash != kPoseidon2 && hash != kMonolith) || levels < 1 || levels > 31 || w < 2)
+    return (int)cudaErrorInvalidValue;
+  const bool top = w <= (1LL << kTopLog);
+  const int lev = top ? levels : std::min(levels, kTreeTileLog);
+  if (w % (1LL << lev)) return (int)cudaErrorInvalidValue;
+  const long long tile = top ? w : (1LL << kTreeTileLog);
+  cudaStream_t st = (cudaStream_t)stream;
+  err = hash == kPoseidon2
+            ? launch_tree<kPoseidon2>(x, xls, xks, xcs, out, w, lev, tile, key_mask, st)
+            : launch_tree<kMonolith>(x, xls, xks, xcs, out, w, lev, tile, key_mask, st);
+  *done = lev;
+  return (int)err;
 }
 
 // K6 with the core `hash` (0 Poseidon2-GL, 1 Monolith) over an (nf, 4, n)

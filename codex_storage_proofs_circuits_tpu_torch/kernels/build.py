@@ -64,6 +64,9 @@ _SIGNATURES = {
     "cspc_fake_prng_rows": [_VP, _VP, _VP, _I, _LL, _I, _VP],
     # hash, x, xls, xks, xcs, y, yls, yks, ycs, key, out, out_lanes, n, device, stream
     "cspc_gl_perm": [_I, _VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _VP, _I, _LL, _I, _VP],
+    # hash, x, xls, xks, xcs, out, w, levels, key_mask, done, device, stream
+    "cspc_gl_tree": [_I, _VP, _LL, _LL, _LL, _VP, _LL, _I, ctypes.c_uint,
+                     ctypes.POINTER(ctypes.c_int), _I, _VP],
     # hash, felts, fs, ks, cs, nf, out, n, device, stream
     "cspc_gl_sponge8": [_I, _VP, _LL, _LL, _LL, _I, _VP, _LL, _I, _VP],
     # hash, rows, row_stride, col_stride, cell_size, out, n, device, stream
@@ -112,23 +115,95 @@ def constants_header() -> str:
     return "\n".join(lines) + "\n"
 
 
-def _matrix(m) -> str:
-    return "{" + ", ".join("{" + ", ".join(f"{v}u" for v in row) + "}" for row in m) + "}"
+def _ints(v) -> str:
+    return "{" + ", ".join(str(x) for x in v) + "}"
+
+
+def _crt12(a: int, b: int) -> int:
+    """The lane at (a mod 4, b mod 3): csrc/goldilocks.cu::crt12."""
+    return (9 * a + 4 * b) % 12
+
+
+def concrete_tables(m) -> dict[str, list[int]]:
+    """Monolith's Concrete m = circ(c) + diag(d) (m[r][k] = c[(k - r) mod 12]
+    off the diagonal) as the kernel's frequency-domain form
+    (csrc/goldilocks.cu::concrete_half).  y = m x is the cyclic convolution
+    of x with e[j] = c[-j mod 12], plus d * x.  With lane i at
+    (i mod 4, i mod 3), e's 4-point sums and differences at each b give, in
+    Z (s = 1), Z (s = -1) and Z[s]/(s^2 + 1), the 3-point kernels k1, km and
+    kr + ki s of the convolutions the kernel runs, scaled by the inverse
+    transform's 1/4 (1/2 in the complex ring, whose inverse counts it
+    twice); diag is d, with c[0] the least diagonal entry.  Raises when m is
+    not 12 x 12 small non-negative integers, not a circulant plus a
+    diagonal, or when a scaled kernel value is not an integer."""
+    n = 12
+    if len(m) != n or any(len(row) != n for row in m):
+        raise ValueError("the Monolith Concrete is not a 12 x 12 matrix")
+    if any(v < 0 for row in m for v in row) or max(sum(row) for row in m) >= 1 << 20:
+        raise ValueError("the Monolith Concrete is not a small non-negative matrix")
+    c0 = min(m[r][r] for r in range(n))
+    c = [c0] + [m[0][k] for k in range(1, n)]
+    if any(m[r][k] != c[(k - r) % n] for r in range(n) for k in range(n) if k != r):
+        raise ValueError("the Monolith Concrete is not a circulant plus a diagonal:"
+                         " the kernel's convolution form does not apply")
+    e = [c[-j % n] for j in range(n)]
+    tables: dict[str, list[int]] = {"k1": [], "km": [], "kr": [], "ki": []}
+    for b in range(3):
+        v0, v1, v2, v3 = (e[_crt12(a, b)] for a in range(4))
+        for name, val, scale in (("k1", v0 + v1 + v2 + v3, 4), ("km", v0 - v1 + v2 - v3, 4),
+                                 ("kr", v0 - v2, 2), ("ki", v1 - v3, 2)):
+            if val % scale:
+                raise ValueError("the Monolith Concrete's transform is not integral after the"
+                                 " inverse scaling: the kernel's convolution form does not apply")
+            tables[name].append(val // scale)
+    tables["diag"] = [m[r][r] - c0 for r in range(n)]
+    return tables
+
+
+def concrete_apply(tables: dict[str, list[int]], x: list[int]) -> list[int]:
+    """The kernel's Concrete step by step in Python integers (each half's
+    arithmetic modulo 2^64, as uint64_t): x (12 values below 2^64) ->
+    canonical M x mod p."""
+    mod = (1 << 64) - 1
+    k1, km, kr, ki = tables["k1"], tables["km"], tables["kr"], tables["ki"]
+
+    def half(h: list[int]) -> list[int]:
+        p1, pm, pr, pi = [0] * 3, [0] * 3, [0] * 3, [0] * 3
+        for b in range(3):
+            v0, v1, v2, v3 = (h[_crt12(a, b)] for a in range(4))
+            p1[b], pm[b] = (v0 + v2 + v1 + v3) & mod, (v0 + v2 - v1 - v3) & mod
+            pr[b], pi[b] = (v0 - v2) & mod, (v1 - v3) & mod
+        y = [0] * 12
+        for b in range(3):
+            z1 = zm = zr = zi = 0
+            for j in range(3):
+                i = (b - j) % 3
+                z1 += k1[j] * p1[i]
+                zm += km[j] * pm[i]
+                zr += kr[j] * pr[i] - ki[j] * pi[i]
+                zi += kr[j] * pi[i] + ki[j] * pr[i]
+            e, o = z1 + zm, z1 - zm
+            for a, v in enumerate((e + zr, o + zi, e - zr, o - zi)):
+                y[_crt12(a, b)] = v & mod
+        return [(v + d * hv) & mod for v, d, hv in zip(y, tables["diag"], h)]
+
+    lo = half([v & 0xFFFFFFFF for v in x])
+    hi = half([v >> 32 for v in x])
+    return [(a + (b << 32)) % G.P_GL for a, b in zip(lo, hi)]
 
 
 def gl_constants_header() -> str:
     """The Goldilocks tables of fields/goldilocks.py as a CUDA header: the
     Poseidon2-GL round constants and internal diagonal (mu_i - 1), the
-    Monolith round constants and Concrete matrix, the sponge IV.  The
-    Concrete is an initializer of small integers for a local constexpr
-    array, so the unrolled row sums fold it into immediates.  The external
-    layer circ(2 M4, M4, M4) is the kernel's M4 addition chain, which holds
-    only for the M4 it was written for (checked here)."""
+    Monolith round constants and the Concrete's convolution tables
+    (concrete_tables), the sponge IV.  The Concrete tables are initializers
+    of small integers for local constexpr arrays, so the unrolled
+    convolutions fold them into shifts and adds.  The external layer
+    circ(2 M4, M4, M4) is the kernel's M4 addition chain, which holds only
+    for the M4 it was written for (checked here)."""
     if [list(row) for row in G.M4] != M4_CHAIN:
         raise ValueError("the Poseidon2-GL M4 is not the matrix of the kernel's addition chain")
-    m = G.MONOLITH_CONCRETE
-    if any(v < 0 for row in m for v in row) or max(sum(row) for row in m) >= 1 << 20:
-        raise ValueError("the Monolith Concrete is not a small non-negative matrix")
+    conc = concrete_tables(G.MONOLITH_CONCRETE)
 
     def u64(v: int) -> str:
         return f"0x{v:016x}ULL"
@@ -147,7 +222,11 @@ def gl_constants_header() -> str:
         f"#define GL_MONO_ROUNDS {G.MONOLITH_ROUNDS}",
         f"#define GL_MONO_BARS {G.MONOLITH_BARS}",
         f"#define GL_SPONGE_IV {u64(SPONGE_IV)}",
-        f"#define GL_MONO_CONCRETE {_matrix(G.MONOLITH_CONCRETE)}",
+        f"#define GL_MONO_CONC_K1 {_ints(conc['k1'])}",
+        f"#define GL_MONO_CONC_KM {_ints(conc['km'])}",
+        f"#define GL_MONO_CONC_KR {_ints(conc['kr'])}",
+        f"#define GL_MONO_CONC_KI {_ints(conc['ki'])}",
+        f"#define GL_MONO_CONC_DIAG {_ints(conc['diag'])}",
         f"static __constant__ uint64_t GL_P2_EXT_RC[{G.RF}][{G.T}] = {{",
         rows(G.P2GL_EXTERNAL_RC),
         "};",

@@ -4,10 +4,11 @@ Port of codex_storage_proofs_circuits_tpu/models/gl_hashing.py and of the
 two single-device reducers of parallel/gl_tree.py (gl_tree_reduce_layers,
 gl_tree_reduce_general), the GL twins of models/hashing.py.  One rate-8
 sponge launch (kernel K6) digests every cell of a batch straight from its
-byte rows (the byte encode happens in the kernel), and each Merkle layer
-is one batched keyed compression (K4 for Poseidon2-GL, K5 for Monolith)
-over the whole layer width.  Digest layers are (4, 4, W) int32 limb planes
-(lane, limb, node).  The felt entry points (sponge_digests,
+byte rows (the byte encode happens in the kernel), and the subtree kernel
+(K4 for Poseidon2-GL, K5 for Monolith) makes the Merkle layers above them,
+many layers a launch; the odd-width dataset tree (gl_tree_reduce_general)
+runs one keyed compression launch a layer.  Digest layers are (4, 4, W)
+int32 limb planes (lane, limb, node).  The felt entry points (sponge_digests,
 slot_tree_from_felts_gl) are the JAX package's API, kept for the parity
 tests.
 
@@ -65,19 +66,15 @@ def gl_tree_reduce_layers(
     every layer (bottom first).  Compressions at the depths in
     `bottom_depths` (counted from `depth_offset`) use key 1, all others
     key 0.  `stop_width` > 1 reduces that many same-shaped trees lying side
-    by side to one root each."""
+    by side to one root each.  The subtree kernel makes the layers (on a
+    CUDA tensor: a 2^18-digest chunk in two launches)."""
     w = digests.shape[2]
     per = w // stop_width if stop_width >= 1 and w % stop_width == 0 else 0
     if per < 1 or per & (per - 1):
         raise ValueError(f"width {w} is not {stop_width} power-of-two trees")
-    layers = [digests]
-    d = depth_offset
-    while layers[-1].shape[2] > stop_width:
-        cur = layers[-1]
-        key = 1 if d in bottom_depths else 0
-        layers.append(compress_digests(hash_fun, key, cur[:, :, 0::2], cur[:, :, 1::2]))
-        d += 1
-    return layers
+    levels = per.bit_length() - 1
+    key_bits = sum(1 << j for j in range(levels) if depth_offset + j in bottom_depths)
+    return [digests, *GC.tree_layers(digests, hash_fun, levels, key_bits, stop_width)]
 
 
 def gl_tree_reduce_general(leaves: torch.Tensor, hash_fun: str) -> list[torch.Tensor]:

@@ -12,9 +12,10 @@ A fake-data chunk is one pass on the device, with no cell bytes crossing
 from the host: seed bases (32 B) -> PRNG (kernel K3) -> (cell_size, B)
 byte rows -> the cell hashes, straight from the rows (K2 for BN254, K6 for
 Goldilocks: the byte encode, and for BN254 the Montgomery form, happen in
-the kernel) -> one compression launch per layer (K1; K4 for Poseidon2-GL,
-K5 for Monolith).  File-backed data loads on the host, crosses per chunk
-and is read in place as a (B, cell_size).T view.
+the kernel) -> the tree: one compression launch per layer for BN254 (K1),
+two launches of the subtree kernel for a Goldilocks chunk (K4 for
+Poseidon2-GL, K5 for Monolith).  File-backed data loads on the host,
+crosses per chunk and is read in place as a (B, cell_size).T view.
 
 Chunk-checkpoint resume is not ported yet.
 """

@@ -4,11 +4,14 @@ compression), K5 (Monolith) and K6 (rate-8 sponge), csrc/goldilocks.cu.
 Port of codex_storage_proofs_circuits_tpu/ops/goldilocks_pallas.py
 (`permutation`, `compress`, `sponge_digest_felts`), and
 `sponge_digest_rows`, the whole cell-digest step from byte rows in one K6
-launch.  A CUDA tensor launches the kernel; a CPU tensor goes to the plain
-version (ops/goldilocks_plain.py).
+launch, and `tree_layers`, the keyed compressions of many tree layers in
+one launch of the subtree kernel (K4 / K5 on the main path).  A CUDA
+tensor launches the kernel; a CPU tensor goes to the plain version
+(ops/goldilocks_plain.py).
 Each launch adds one to kernels.build.LAUNCHES: "gl_perm" (K4) or
-"mono_perm" (K5), and "gl_sponge8" or "mono_sponge8" (K6 with each core,
-byte rows; its limb-plane entry counts under "gl_sponge8_planes" or
+"mono_perm" (K5), for the permutation and compression entries and for
+each subtree launch, and "gl_sponge8" or "mono_sponge8" (K6 with each
+core, byte rows; its limb-plane entry counts under "gl_sponge8_planes" or
 "mono_sponge8_planes").
 Planes are int32 16-bit limbs; outputs are canonical.
 """
@@ -75,6 +78,42 @@ def compress(x: torch.Tensor, y: torch.Tensor, key: int,
     for t in (x, y):
         build.require_cuda(t, "compress", torch.int32, (4, NL, x.shape[2]))
     return _launch_perm(hash_fun, x, y, key, 4)
+
+
+def tree_layers(layer: torch.Tensor, hash_fun: str, levels: int, key_bits: int,
+                stop_width: int = 1) -> list[torch.Tensor]:
+    """The `levels` keyed compression layers above a (4, 4, W) digest layer
+    of `stop_width` power-of-two trees side by side (W = stop_width <<
+    levels): layer j + 1 (of width W >> (j + 1)) pairs the columns of layer j
+    with key (key_bits >> j) & 1.  On the card the subtree kernel makes them
+    all in one launch for W <= 2^11, else in one launch for each 11 levels
+    until the width is at most 2^11, then one more (a 2^18-digest chunk:
+    two); each is a contiguous (4, 4, W >> (j + 1)) view of one buffer."""
+    w = layer.shape[2]
+    if not 0 <= levels <= 31 or stop_width < 1 or w != stop_width << levels:
+        raise ValueError(f"tree_layers: width {w} is not {stop_width} trees of 2^{levels}")
+    if layer.device.type == "cpu":
+        return plain.tree_layers(hash_fun, layer, levels, key_bits)
+    build.require_cuda(layer, "tree_layers", torch.int32, (4, NL, None))
+    hid = _hash_id(hash_fun)
+    out = torch.empty(4 * NL * (w - stop_width), dtype=torch.int32, device=layer.device)
+    dev, stream = build.launch_args(layer)
+    layers, cur, off = [], layer, 0
+    done = ctypes.c_int(0)
+    while len(layers) < levels:
+        err = build.load().cspc_gl_tree(
+            hid, _ptr(cur), *cur.stride(), ctypes.c_void_p(out.data_ptr() + 4 * off),
+            cur.shape[2], levels - len(layers), (key_bits >> len(layers)) & 0xFFFFFFFF,
+            ctypes.byref(done), dev, stream,
+        )
+        build.check(err, f"goldilocks {hash_fun} subtree kernel")
+        build.LAUNCHES[_PERM_COUNTER[hash_fun]] += 1
+        for _ in range(done.value):
+            gw = cur.shape[2] // 2
+            cur = out[off : off + 4 * NL * gw].view(4, NL, gw)
+            layers.append(cur)
+            off += 4 * NL * gw
+    return layers
 
 
 def sponge_digest_felts(felts: torch.Tensor, hash_fun: str = "poseidon2") -> torch.Tensor:

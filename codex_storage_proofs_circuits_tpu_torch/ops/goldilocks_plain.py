@@ -4,7 +4,8 @@ keyed digest compression and rate-8 sponge, in plain torch.
 Port of codex_storage_proofs_circuits_tpu/ops/gl_core.py and
 ops/goldilocks_jnp.py, and the plain version of the CUDA kernels K4
 (Poseidon2-GL), K5 (Monolith) and K6 (rate-8 sponge, and the cell digest
-from byte rows) in ops/goldilocks_cuda.py.
+from byte rows) in ops/goldilocks_cuda.py, and of the subtree kernel
+(`tree_layers`, many tree layers a launch).
 
 Public layouts are the JAX package's: a felt batch is (4, B), a state
 (12, 4, B), a digest batch (4, 4, B) and a felt sequence (n, 4, B), each a
@@ -277,6 +278,19 @@ def compress_batch(hash_fun: str, key, x: torch.Tensor, y: torch.Tensor) -> torc
     zero = x.new_zeros((3, NL, b))
     state = torch.cat([x, y.to(x.dtype), key[None], zero], 0)
     return permutation(state, hash_fun)[:4]
+
+
+def tree_layers(hash_fun: str, layer: torch.Tensor, levels: int,
+                key_bits: int) -> list[torch.Tensor]:
+    """The `levels` keyed compression layers above a (4, 4, W) digest
+    layer, one compress_batch a layer: layer j + 1 pairs the columns of
+    layer j with key (key_bits >> j) & 1.  The plain version of the subtree
+    kernel (goldilocks_cuda.tree_layers)."""
+    out = []
+    for j in range(levels):
+        layer = compress_batch(hash_fun, (key_bits >> j) & 1, layer[:, :, 0::2], layer[:, :, 1::2])
+        out.append(layer)
+    return out
 
 
 def sponge_digest_felts(hash_fun: str, felts: torch.Tensor) -> torch.Tensor:

@@ -177,3 +177,31 @@ def test_gl_slice_on_cuda_matches_oracle(cuda, hash_fun):
     got = TGPI.generate_proof_input_gl_streaming(hash_fun, glob, dset, 1, entropy,
                                                  chunk_cells=8, device=cuda)
     assert got == want
+
+
+# (width, trees side by side, subtree launches): one tree of 1, 2, 2^7, 2^8
+# and 2^9 digests and four trees of 2^7 (one CTA: at most 2^11 digests);
+# 2^12 and two trees of 2^12 (a launch of CTAs of 2^11 digests, then one
+# CTA), 64 trees of 64 in CTAs of 2^11 (each CTA's tile holds 32 trees),
+# and one main-path chunk of 2^18 digests
+TREE_CASES = [(1, 1, 0), (2, 1, 1), (128, 1, 1), (256, 1, 1), (512, 1, 1), (512, 4, 1),
+              (4096, 1, 2), (8192, 2, 2), (4096, 64, 1), (1 << 18, 1, 2)]
+
+
+@pytest.mark.parametrize("hash_fun", ["poseidon2", "monolith"])
+def test_gl_subtree_matches_plain(cuda, hash_fun):
+    rng = np.random.default_rng(45)
+    counter = {"poseidon2": "gl_perm", "monolith": "mono_perm"}[hash_fun]
+    for w, stop, launches in TREE_CASES:
+        layer = _gl_planes(rng, (4, 4, w)).to(cuda)
+        levels = (w // stop).bit_length() - 1
+        key_bits = 0b100001 if w == 1 << 18 else int(rng.integers(0, 1 << 20))
+        want = TGP.tree_layers(hash_fun, layer, levels, key_bits)
+        before = build.LAUNCHES[counter]
+        got = TGC.tree_layers(layer, hash_fun, levels, key_bits, stop)
+        assert build.LAUNCHES[counter] == before + launches, (w, stop)
+        assert len(got) == levels and (w == stop or got[-1].shape == (4, 4, stop))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (w, stop)
+    view = _gl_planes(rng, (4, 4, 2 * 4096)).to(cuda)[:, :, 1::2]  # a strided layer
+    assert all(torch.equal(a, b) for a, b in zip(TGC.tree_layers(view, hash_fun, 12, 5),
+                                                 TGP.tree_layers(hash_fun, view, 12, 5)))

@@ -12,6 +12,10 @@ package, which builds its kernels at first use, and measuring on the same
 seeded inputs the time per call (kernels/timing.py: a kernel's device
 time; a path's time end to end, by CUDA events) of:
   - K1, K4 and K5 on one 2^16 -> 2^15 compression;
+  - the Goldilocks tree of one main-path chunk (2^18 digests to the root,
+    key schedule (0, 5)) as the checkout's gl_tree_reduce_layers builds
+    it: one launch a layer, or the subtree kernel where the checkout has
+    it (its device time, and by CUDA events end to end);
   - K2 on (34, 2, 16, 2^16) Montgomery blocks and K6 with each core on
     (272, 4, 2^16) felts, the limb-plane entries both checkouts have;
   - the cell-hash step of one 2^16-cell chunk of 2048-byte cells from K3,
@@ -57,6 +61,7 @@ blocks = torch.randint(0, 1 << 16, (34, 2, 16, n), dtype=torch.int32, device=dev
 blocks[:, :, 15] %= 0x3064
 felts = torch.randint(0, 1 << 16, (272, 4, n), dtype=torch.int32, device=dev)
 rows = F.gen_rows(*F.fake_seed_bases(12345, 0, dev), 2048, n)
+chunk = torch.randint(0, 1 << 16, (4, 4, 1 << 18), dtype=torch.int32, device=dev)
 
 def bn254_cells():
     if hasattr(H, "hash_cells_rows"):
@@ -68,11 +73,18 @@ def gl_cells(h):
         return lambda: GH.sponge_digests_rows(h, rows)
     return lambda: GH.sponge_digests(h, GE.encode_rows(rows))
 
+def gl_tree(h):
+    return lambda: torch.cat([x.reshape(-1) for x in GH.gl_tree_reduce_layers(chunk, h, (0, 5))])
+
 runs = {  # name: (call, reps, timer)
     "K1 compress": (lambda: P2C.compress_layer(layer[:, 0::2], layer[:, 1::2], 1), 50, device_ms),
     "K4 compress": (lambda: GC.compress(digests[..., 0::2], digests[..., 1::2], 1), 50, device_ms),
     "K5 compress": (lambda: GC.compress(digests[..., 0::2], digests[..., 1::2], 1, "monolith"),
                     50, device_ms),
+    "K4 chunk tree": (gl_tree("poseidon2"), 10, device_ms),
+    "K5 chunk tree": (gl_tree("monolith"), 10, device_ms),
+    "K4 chunk tree, end to end": (gl_tree("poseidon2"), 10, events_ms),
+    "K5 chunk tree, end to end": (gl_tree("monolith"), 10, events_ms),
     "K2 limb planes": (lambda: P2C.sponge2_absorb(blocks), 3, device_ms),
     "K6 poseidon2 limb planes": (lambda: GC.sponge_digest_felts(felts, "poseidon2"), 5, device_ms),
     "K6 monolith limb planes": (lambda: GC.sponge_digest_felts(felts, "monolith"), 5, device_ms),
