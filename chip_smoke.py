@@ -36,13 +36,32 @@ Phases:
   7. Goldilocks, each hash on its own: the port CLI with --check on two
      1 GB slots, checked on the host (cell digests, Merkle paths, the
      dataset proof, check_proof_input_gl) with the launch counts of that
-     run; then one warm 1 GB slot-root build, timed, and one profiled.
+     run; then one warm 1 GB slot-root build, timed, and one profiled;
+  8. the device verifier (models/circuit.verify_proof_input_device) on
+     phase 5's proof input, which it must accept, and on three tampered
+     copies (a cell felt, a path sibling, a slotProof entry), which it must
+     reject; only K1 and K2's limb-plane entry may launch;
+  9. the sharded proof inputs (parallel/) over the same 2 x 1 GB slots on
+     a 2 x 2 mesh of shards on this one card, for BN254 and each GL hash:
+     each export must equal phase 5's or 7's byte for byte, pass
+     check_circuit_semantics / check_proof_input_gl, and launch the byte-row
+     kernels of its field and the sampling kernel only; timed beside the
+     single-device call in the same phase;
+ 10. chunk-checkpoint resume of a 1 GB BN254 slot: one chunk, a stop, then
+     the resume, whose root must equal phase 5's;
+ 11. two processes on the card joined by gloo (parallel/distributed.py),
+     each building one 1 GB slot of phase 5's dataset: both must print its
+     dataset root and write its proof input;
+ 12. the entry twins (entry.py): entry()'s root against the oracle, and
+     dryrun_multichip(8) on a mesh of eight shards on this card.
 
 Each main path (phase 5, and phase 7 once per hash) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
 that path must have launched, and no other kernel, nor the limb-plane
 entries of K2 and K6 (counted apart from their byte-row entries); a GL
-path launches K4 or K5 (the subtree kernel) at most 12 times.
+path launches K4 or K5 (the subtree kernel) at most 12 times.  Phases 8
+and 9 reset and read the counts around their own runs, against the
+kernels each names.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Any failed check raises: the exit code is then non-zero and there is no
@@ -96,6 +115,14 @@ from codex_storage_proofs_circuits_tpu_torch.ops import limbs as L
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_cuda as P2C
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_plain as P2
 from codex_storage_proofs_circuits_tpu_torch.utils import cli
+from codex_storage_proofs_circuits_tpu_torch.utils.json_export import export_proof_input
+from codex_storage_proofs_circuits_tpu_torch import entry as EN
+from codex_storage_proofs_circuits_tpu_torch import parallel as PAR
+from codex_storage_proofs_circuits_tpu_torch.models.circuit import (
+    check_circuit_semantics,
+    verify_proof_input_device,
+)
+from codex_storage_proofs_circuits_tpu_torch.oracle.slot import DataSource, SlotConfig, calc_slot_tree
 
 CHUNK = S.DEFAULT_CHUNK_CELLS  # cells per streaming chunk on the main path
 CELL = 2048
@@ -422,20 +449,25 @@ def reset_launches() -> None:
 def check_launches(path: str) -> dict:
     """The counts since reset_launches(): every kernel of the path launched,
     and nothing else (no kernel of another path, no limb-plane entry)."""
-    launches = dict(build.LAUNCHES)
-    missing = [k for k in PATH_COUNTERS[path] if launches[k] < 1]
-    if missing:
-        raise AssertionError(f"{path}: kernels of the main path were not launched: {missing}")
-    stray = [k for k, n in launches.items() if n and k not in PATH_COUNTERS[path]]
-    if stray:
-        raise AssertionError(f"{path}: kernels off the main path were launched: {stray}")
-    trees = [k for k in ("gl_perm", "mono_perm") if launches[k] > MAX_TREE_LAUNCHES]
+    launches = check_only(path, PATH_COUNTERS[path])
+    trees = [k for k in ("gl_perm", "mono_perm") if launches.get(k, 0) > MAX_TREE_LAUNCHES]
     if trees:
         raise AssertionError(f"{path}: more than {MAX_TREE_LAUNCHES} tree launches: {trees}")
     return launches
 
 
-def phase_full(tmp: str) -> dict:
+def check_only(what: str, allowed: tuple[str, ...]) -> dict:
+    """The counts since reset_launches() of the kernels that launched: every
+    counter in `allowed` launched, and nothing else."""
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in allowed if launches[k] < 1]
+    stray = [k for k, n in launches.items() if n and k not in allowed]
+    if missing or stray:
+        raise AssertionError(f"{what}: launches {launches}: missing {missing}, stray {stray}")
+    return {k: n for k, n in launches.items() if n}
+
+
+def phase_full(tmp: str) -> tuple[dict, dict]:
     out = os.path.join(tmp, "full.json")
     argv = ["--field=bn254", "--device=cuda", "--nslots=2", "--log2ncells=19",
             f"--cellsize={CELL}", "--blocksize=65536", "--nsamples=5", "--check",
@@ -481,7 +513,7 @@ def phase_full(tmp: str) -> dict:
     if pi.slot_index == 0 and root != pi.slot_root:
         raise AssertionError("warm slot root differs")
     log_profile("bn254", lambda: S.streaming_slot_root(cfg))
-    return launches
+    return launches, {"pi": pi, "argv": argv, "out": out, "wall": wall}
 
 
 def phase_small_gl(tmp: str) -> None:
@@ -625,7 +657,7 @@ def log_profile(label: str, fn) -> None:
         f" largest others {json.dumps(prof['top_other_ms'])}")
 
 
-def phase_full_gl(tmp: str, hash_fun: str) -> dict:
+def phase_full_gl(tmp: str, hash_fun: str) -> tuple[dict, dict]:
     """One Goldilocks main path (one hash): its launch counts are set to 0
     just before its CLI run and read just after."""
     out = os.path.join(tmp, f"full_gl_{hash_fun}.json")
@@ -656,7 +688,181 @@ def phase_full_gl(tmp: str, hash_fun: str) -> dict:
     if pi.slot_index == 0 and root != pi.slot_root:
         raise AssertionError(f"{hash_fun}: warm slot root differs")
     log_profile(hash_fun, lambda: S.streaming_slot_root_gl(cfg, hash_fun))
-    return launches
+    return launches, {"argv": argv, "out": out, "wall": wall}
+
+
+def phase_verifier(run: dict) -> None:
+    """verify_proof_input_device on the clean proof input and on three
+    tampered copies, with the launch counts of the four calls."""
+    import dataclasses
+
+    pi = run["pi"]
+    glob, _ = cli.configs_from_args(cli.build_parser().parse_args(run["argv"]))
+    cell = dataclasses.replace(pi, cell_data=[list(c) for c in pi.cell_data])
+    cell.cell_data[0][0] ^= 1
+    path = dataclasses.replace(pi, merkle_paths=[list(p) for p in pi.merkle_paths])
+    path.merkle_paths[1][2] ^= 1
+    proof = dataclasses.replace(pi, slot_proof=list(pi.slot_proof))
+    proof.slot_proof[0] ^= 1
+    reset_launches()
+    for label, case, want in (("clean", pi, True), ("cell felt", cell, False),
+                              ("path sibling", path, False), ("slotProof entry", proof, False)):
+        t0 = time.perf_counter()
+        got = verify_proof_input_device(glob, case)
+        wall = time.perf_counter() - t0
+        log(f"  {label}: verify_proof_input_device -> {got} in {wall * 1e3:.1f} ms")
+        if got != want:
+            raise AssertionError(f"device verifier on the {label} proof input: {got}, want {want}")
+    log(f"  launches {check_only('verifier', ('perm', 'sponge2_planes'))}")
+
+
+def timed(fn):
+    """(fn()'s result, its wall in seconds through a device sync)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sharded(tmp: str, runs: dict) -> None:
+    """The sharded proof inputs on a 2 x 2 mesh of shards on cuda:0 against
+    phase 5's and 7's exports.  Walls in turns: single-device, sharded,
+    sharded, single-device; the launch counts are those of the first
+    sharded run."""
+    from codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline import (
+        export_proof_input_gl,
+    )
+
+    mesh = PAR.make_mesh(n_cells_shards=2, n_slot_shards=2, devices=["cuda:0"] * 4)
+    dev = torch.device("cuda")
+    for field in ("bn254", *HASHES):
+        run = runs[field]
+        args = cli.build_parser().parse_args(run["argv"])
+        glob, dset = cli.configs_from_args(args)
+        out = os.path.join(tmp, f"sharded_{field}.json")
+        if field == "bn254":
+            def single():
+                return cli.generate(glob, dset, args.index, args.entropy, dev)
+
+            def sharded():
+                return PAR.sharded_proof_input(glob, dset, args.index, args.entropy, mesh)
+            allowed = ("perm", "sponge2", "prng")
+        else:
+            def single():
+                return cli.generate_gl(field, glob, dset, args.index, args.entropy, dev)
+
+            def sharded():
+                return PAR.sharded_gl_proof_input(field, glob, dset, args.index,
+                                                  GO.int_to_digest(args.entropy), mesh)
+            perm, sponge = PATH_COUNTERS[field][1:]
+            allowed = ("prng", perm, sponge, sponge + "_planes")
+        _, single_1 = timed(single)
+        reset_launches()
+        pi, sharded_1 = timed(sharded)
+        launches = check_only(field, allowed)
+        _, sharded_2 = timed(sharded)
+        _, single_2 = timed(single)
+        if field == "bn254":
+            export_proof_input(out, pi)
+            check_circuit_semantics(glob, dset, pi)
+            check = "check_circuit_semantics"
+        else:
+            export_proof_input_gl(out, pi)
+            check_proof_input_gl(field, glob, pi)
+            check = "check_proof_input_gl"
+        with open(out, "rb") as a, open(run["out"], "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{field}: the sharded proof input differs from the"
+                                     " single-device one")
+        log(f"  {field}: mesh {mesh.shape}; walls in turns single-device {single_1:.4f} s,"
+            f" sharded {sharded_1:.4f} s, sharded {sharded_2:.4f} s, single-device"
+            f" {single_2:.4f} s (the CLI run of phase 5/7: {run['wall']:.2f} s); export equal,"
+            f" {check} ok; launches {launches}")
+
+
+def phase_checkpoint(tmp: str, run: dict) -> None:
+    """A 1 GB BN254 slot: one chunk computed and saved, a stop, then the
+    resume; the root must equal phase 5's slot root."""
+    glob, dset = cli.configs_from_args(cli.build_parser().parse_args(run["argv"]))
+    pi = run["pi"]
+    cfg = slot_cfg_from_dataset_cfg(glob, dset, pi.slot_index)
+    ck = os.path.join(tmp, "checkpoint")
+    first, second = S.StreamingStats(), S.StreamingStats()
+    t0 = time.perf_counter()
+    if S.streaming_slot_root(cfg, stats=first, checkpoint_dir=ck, stop_after_chunks=1) is not None:
+        raise AssertionError("checkpoint: the build did not stop after one chunk")
+    t1 = time.perf_counter()
+    root = S.streaming_slot_root(cfg, stats=second, checkpoint_dir=ck)
+    t2 = time.perf_counter()
+    if root != pi.slot_root:
+        raise AssertionError("checkpoint: the resumed root differs from phase 5's")
+    if second.loaded != 1 or second.chunks - second.loaded != 1:
+        raise AssertionError(f"checkpoint: resume loaded {second.loaded} of {second.chunks} chunks")
+    log(f"  stopped run {t1 - t0:.4f} s (1 chunk computed, save {first.save_s:.4f} s);"
+        f" resume {t2 - t1:.4f} s: {second.loaded} chunk loaded ({second.load_s:.4f} s),"
+        f" {second.chunks - second.loaded} computed (save {second.save_s:.4f} s); root equals"
+        " phase 5's")
+
+
+def phase_two_processes(tmp: str, run: dict) -> None:
+    """Two processes on this card, gloo, one 1 GB slot each (the slots axis
+    spans them): both print phase 5's dataset root and write its proof
+    input."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dataset = [a for a in run["argv"] if not a.startswith(("--output", "--check"))]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        cmd = [sys.executable, "-m", "codex_storage_proofs_circuits_tpu_torch.parallel.distributed",
+               "--backend=gloo", f"--init-method=tcp://127.0.0.1:{port}", "--world-size=2",
+               f"--rank={rank}", *dataset, f"--output={os.path.join(tmp, f'dist_{rank}.json')}"]
+        procs.append(subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    want = str(run["pi"].data_set_root)
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"  rank {rank}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} exited {p.returncode}: {err[-3000:]}")
+        roots = [line.split()[1] for line in out.splitlines() if line.startswith("DATASET_ROOT")]
+        if roots != [want]:
+            raise AssertionError(f"rank {rank}: dataset root {roots}, phase 5's {want}")
+        with open(os.path.join(tmp, f"dist_{rank}.json"), "rb") as a, open(run["out"], "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"rank {rank}: the proof input differs from phase 5's")
+    log(f"  both ranks: phase 5's dataset root and proof input; two-process wall {wall:.2f} s"
+        " (process start, kernel load, build, gloo all_reduce)")
+
+
+def phase_entry() -> None:
+    """entry()'s root against the oracle; dryrun_multichip(8) on one card."""
+    fn, args = EN.entry()
+    t0 = time.perf_counter()
+    root = L.unpack(fn(*args))[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = SlotConfig(cell_size=2048, block_size=65536, n_cells=256, n_samples=1,
+                     data_src=DataSource("fake", seed=12345))
+    if root != calc_slot_tree(cfg).root:
+        raise AssertionError("entry(): the root differs from the oracle's")
+    log(f"  entry(): root equals the oracle's ({wall * 1e3:.1f} ms on the card)")
+    t0 = time.perf_counter()
+    EN.dryrun_multichip(8)
+    log(f"  dryrun_multichip(8): {time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:
@@ -694,12 +900,24 @@ def main() -> int:
         log("[4] BN254: small main path against the oracle")
         phase_small(tmp)
         log("[5] BN254: full-width main path: 2 slots of 1 GB")
-        launches = {"bn254": phase_full(tmp)}
+        runs = {}
+        launches = {}
+        launches["bn254"], runs["bn254"] = phase_full(tmp)
         log("[6] Goldilocks: small main path against the oracle, both hashes")
         phase_small_gl(tmp)
         log("[7] Goldilocks: full-width main path: 2 slots of 1 GB, each hash")
         for hash_fun in HASHES:
-            launches[hash_fun] = phase_full_gl(tmp, hash_fun)
+            launches[hash_fun], runs[hash_fun] = phase_full_gl(tmp, hash_fun)
+        log("[8] device verifier on the 2 x 1 GB BN254 proof input")
+        phase_verifier(runs["bn254"])
+        log("[9] sharded proof inputs, 2 x 1 GB, a 2 x 2 mesh of shards on one card")
+        phase_sharded(tmp, runs)
+        log("[10] checkpoint resume of a 1 GB BN254 slot")
+        phase_checkpoint(tmp, runs["bn254"])
+        log("[11] two processes on the card (gloo), one 1 GB slot each")
+        phase_two_processes(tmp, runs["bn254"])
+    log("[12] entry twins")
+    phase_entry()
 
     for key in ("sponge2:planes", "gl_sponge8:planes", "mono_sponge8:planes"):
         r = results[key]

@@ -80,24 +80,33 @@ def tree_reduce_general(leaves_mont: torch.Tensor) -> list[torch.Tensor]:
     trailing node compresses against zero with the odd key (3 at the bottom,
     2 above); a singleton bottom still gets one bottom-odd compression.
     """
-    layers = [leaves_mont]
+    return tree_reduce_general_many([leaves_mont])[0]
+
+
+def tree_reduce_general_many(leaves_mont: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+    """tree_reduce_general of several trees of any widths: each level of
+    all the trees still above their root is at most two compressions, one
+    over every pair and one over every odd trailing node."""
+    trees = [[x] for x in leaves_mont]
     bottom = True
-    while layers[-1].shape[1] > 1 or bottom:
-        cur = layers[-1]
-        w = cur.shape[1]
-        half = w // 2
-        parts = []
-        if half:
-            parts.append(
-                compress_layer(cur[:, 0 : 2 * half : 2], cur[:, 1 : 2 * half : 2],
-                               1 if bottom else 0)
-            )
-        if w % 2 == 1:
-            zero = cur.new_zeros((NL, 1))
-            parts.append(compress_layer(cur[:, w - 1 : w], zero, 3 if bottom else 2))
-        layers.append(torch.cat(parts, dim=1))
+    while True:
+        live = [t for t in trees if t[-1].shape[1] > 1 or bottom]
+        if not live:
+            return trees
+        halves = [t[-1].shape[1] // 2 for t in live]
+        odds = [t[-1][:, 2 * h :] for t, h in zip(live, halves)]  # 0 or 1 node
+        pairs = torch.cat([t[-1][:, : 2 * h] for t, h in zip(live, halves)], dim=1)
+        odd = torch.cat(odds, dim=1)
+        up = pairs[:, :0]
+        if pairs.shape[1]:
+            up = compress_layer(pairs[:, 0::2], pairs[:, 1::2], 1 if bottom else 0)
+        odd_up = odd
+        if odd.shape[1]:
+            odd_up = compress_layer(odd, torch.zeros_like(odd), 3 if bottom else 2)
+        for t, u, o in zip(live, up.split(halves, dim=1),
+                           odd_up.split([o.shape[1] for o in odds], dim=1)):
+            t.append(torch.cat([u, o], dim=1))
         bottom = False
-    return layers
 
 
 def extract_paths_device(

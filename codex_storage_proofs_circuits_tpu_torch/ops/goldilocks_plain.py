@@ -244,9 +244,19 @@ _CORES = {"poseidon2": _poseidon2, "monolith": _monolith}
 
 
 def _core(hash_fun: str):
+    """The permutation of one hash on an int64 (4, 12, B) state, run under
+    inference mode (no autograd dispatch on each of its many small ops) and
+    cloned out of it, so that callers may update the result in place."""
     if hash_fun not in _CORES:
         raise ValueError(f"unknown hash {hash_fun!r}: expected one of {HASHES}")
-    return _CORES[hash_fun]
+    core = _CORES[hash_fun]
+
+    def run(s: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            s = core(s)
+        return s.clone()
+
+    return run
 
 
 def permutation(state: torch.Tensor, hash_fun: str = "poseidon2") -> torch.Tensor:

@@ -80,16 +80,20 @@ def _internal_round(st, c):
 
 def _permute(st):
     """The 64-round permutation on an int64 (NL, 3, B) state: the lanes
-    batch into one tensor so that each field op runs once for all three."""
+    batch into one tensor so that each field op runs once for all three.
+    The rounds run under inference mode, which spares each of their
+    thousands of small ops the autograd dispatch; the result is cloned out
+    of it, so that callers may update it in place."""
     ext, inner = _rc(st.device)
-    st = _mix(st)
-    for r in range(4):
-        st = _external_round(st, ext[r])
-    for r in range(inner.shape[0]):
-        st = _internal_round(st, inner[r])
-    for r in range(4, 8):
-        st = _external_round(st, ext[r])
-    return st
+    with torch.inference_mode():
+        st = _mix(st)
+        for r in range(4):
+            st = _external_round(st, ext[r])
+        for r in range(inner.shape[0]):
+            st = _internal_round(st, inner[r])
+        for r in range(4, 8):
+            st = _external_round(st, ext[r])
+    return st.clone()
 
 
 def permutation(state: torch.Tensor) -> torch.Tensor:

@@ -83,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the computation (cuda, cuda:N or cpu)")
     p.add_argument("--check", action="store_true",
                    help="after generation, check the proof input against the circuit's "
-                        "semantics (bn254: the witness evaluator; goldilocks: "
+                        "semantics (bn254: check_circuit_semantics; goldilocks: "
                         "check_proof_input_gl)")
     return p
 
@@ -207,7 +207,7 @@ def main(argv=None) -> int:
                 check_proof_input_gl(args.hash, glob, pi)
                 print("circuit semantics check: OK")
         else:
-            from ..models.witness import evaluate_witness, generate_witness
+            from ..models.circuit import check_circuit_semantics
             from ..utils.json_export import export_proof_input
 
             pi = generate(glob, dset, args.index, args.entropy, device, args.verbose)
@@ -215,8 +215,8 @@ def main(argv=None) -> int:
             if args.verbose:
                 print(f"generated in {time.time() - t0:.3f}s")
             if args.check:
-                evaluate_witness(glob, pi, generate_witness(glob, pi))
-                print("witness check: OK")
+                check_circuit_semantics(glob, dset, pi)
+                print("circuit semantics check: OK")
 
     print("done")
     return 0

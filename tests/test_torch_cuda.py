@@ -31,6 +31,9 @@ from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_plain as TGP
 from codex_storage_proofs_circuits_tpu_torch.ops import limbs as TL
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_cuda as TC
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_plain as TP
+from codex_storage_proofs_circuits_tpu_torch import parallel as TPAR
+from codex_storage_proofs_circuits_tpu_torch.models import circuit as TCIRC
+from codex_storage_proofs_circuits_tpu_torch.models import streaming as TS
 
 pytestmark = pytest.mark.cuda
 
@@ -205,3 +208,115 @@ def test_gl_subtree_matches_plain(cuda, hash_fun):
     view = _gl_planes(rng, (4, 4, 2 * 4096)).to(cuda)[:, :, 1::2]  # a strided layer
     assert all(torch.equal(a, b) for a, b in zip(TGC.tree_layers(view, hash_fun, 12, 5),
                                                  TGP.tree_layers(hash_fun, view, 12, 5)))
+
+
+def test_device_verifier_on_cuda(cuda):
+    import dataclasses
+
+    glob = GlobalConfig(max_depth=16, max_log2_n_slots=4, cell_size=64, block_size=256)
+    dset = DataSetConfig(n_slots=3, n_cells=32, n_samples=4, data_src=DataSource("fake", seed=5))
+    pi = oracle_pi(glob, dset, 1, 7)
+    before = dict(build.LAUNCHES)
+    assert TCIRC.verify_proof_input_device(glob, pi, device=cuda)
+    bad = dataclasses.replace(pi, merkle_paths=[list(p) for p in pi.merkle_paths])
+    bad.merkle_paths[0][3] ^= 1
+    assert not TCIRC.verify_proof_input_device(glob, bad, device=cuda)
+    grew = {k for k, n in build.LAUNCHES.items() if n != before[k]}
+    assert grew == {"perm", "sponge2_planes"}
+
+
+def test_sharded_2x2_mesh_on_one_card_matches_oracle(cuda):
+    mesh = TPAR.make_mesh(n_cells_shards=2, n_slot_shards=2, devices=[cuda] * 4)
+    glob = GlobalConfig(max_depth=16, max_log2_n_slots=4, cell_size=64, block_size=256)
+    dset = DataSetConfig(n_slots=3, n_cells=32, n_samples=4, data_src=DataSource("fake", seed=5))
+    assert TPAR.sharded_proof_input(glob, dset, 2, 7, mesh) == oracle_pi(glob, dset, 2, 7)
+    entropy = GO.int_to_digest(7)
+    for hash_fun in ("poseidon2", "monolith"):
+        got = TPAR.sharded_gl_proof_input(hash_fun, glob, dset, 2, entropy, mesh)
+        assert got == oracle_pi_gl(hash_fun, glob, dset, 2, entropy)
+
+
+def test_checkpoint_resume_on_cuda(cuda, tmp_path):
+    from codex_storage_proofs_circuits_tpu_torch.oracle.slot import SlotConfig, calc_slot_tree
+
+    cfg = SlotConfig(cell_size=64, block_size=256, n_cells=64, n_samples=1,
+                     data_src=DataSource("fake", seed=77))
+    ck = str(tmp_path / "ck")
+    assert TS.streaming_slot_root(cfg, 16, device=cuda, checkpoint_dir=ck,
+                                  stop_after_chunks=2) is None
+    stats = TS.StreamingStats()
+    assert TS.streaming_slot_root(cfg, 16, stats, device=cuda, checkpoint_dir=ck) == \
+        calc_slot_tree(cfg).root
+    assert (stats.chunks, stats.loaded) == (4, 2)
+
+
+def test_nccl_all_gather_with_one_process(cuda):
+    # the nccl route of parallel/distributed.py on one card (one process:
+    # several cards are not available to this test): the host-name seating
+    # of initialize() and the all_reduce of sum_over_processes
+    import socket
+
+    import torch.distributed as dist
+
+    from codex_storage_proofs_circuits_tpu_torch.parallel import distributed as DD
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    DD.initialize("nccl", f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        t = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+        assert torch.equal(DD.sum_over_processes(t), t)
+        assert torch.equal(DD.sum_over_processes(t.to(cuda)).cpu(), t)
+        assert DD.make_global_mesh().shape == {"slots": 1, "cells": 1}
+    finally:
+        dist.destroy_process_group()
+
+
+NCCL_RANK = """
+import sys
+from codex_storage_proofs_circuits_tpu_torch.parallel import distributed as DD
+try:
+    DD.initialize("nccl", sys.argv[1], world_size=2, rank=int(sys.argv[2]))
+except ValueError as e:
+    print("REFUSED", e, flush=True)
+"""
+
+
+def test_nccl_refuses_two_processes_on_one_card(cuda):
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_RANK, init, str(r)], env=env, cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "REFUSED nccl needs one card a process: 2 processes on this host, 1 cards" in out
+
+
+def test_tree_reduce_general_many_matches_plain(cuda):
+    from codex_storage_proofs_circuits_tpu_torch.models import hashing as TH
+
+    rng = np.random.default_rng(7)
+    leaves = [TL.to_mont(TL.pack([int(v) for v in rng.integers(0, 2**62, w)]))
+              for w in (1, 2, 3, 5, 8, 9, 40)]
+    want = TH.tree_reduce_general_many(leaves)
+    got = TH.tree_reduce_general_many([x.to(cuda) for x in leaves])
+    for g, w in zip(got, want):
+        assert len(g) == len(w) and all(torch.equal(a.cpu(), b) for a, b in zip(g, w))

@@ -26,13 +26,16 @@ def test_port_modules_are_found():
                  "models.streaming", "models.proof_input", "utils.cli", "convert",
                  "ops.goldilocks_plain", "ops.goldilocks_cuda", "ops.gl_encode",
                  "models.gl_hashing", "models.gl_proof_input", "fields.goldilocks",
-                 "fields.gl_tables", "oracle.goldilocks_pipeline"):
+                 "fields.gl_tables", "oracle.goldilocks_pipeline", "models.circuit",
+                 "parallel", "parallel.mesh", "parallel.tree", "parallel.gl_tree",
+                 "parallel.proof_input", "parallel.distributed", "entry"):
         assert f"{port.__name__}.{name}" in mods
 
 
 def test_port_imports_no_jax():
     mods = _port_modules() + ["chip_smoke", "tools_torch.chunk_sweep", "tools_torch.time_against",
-                              "tools_torch.gl_tree_widths", "tools_torch.tile_sweep"]
+                              "tools_torch.gl_tree_widths", "tools_torch.tile_sweep",
+                              "tools_torch.print_testvectors"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
