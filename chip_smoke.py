@@ -15,7 +15,14 @@ Phases:
      bitwise, at the shapes the main paths give it (one chunk of 2^18
      cells of 2048 bytes and one layer of its tree), with the times of both
      and the least time the card could take for the same work (bound_ms;
-     a kernel's time is its device time per call, kernels/timing.py).  K2
+     a kernel's time is its device time per call, kernels/timing.py).  K1
+     is held on its permutation and compression entries (the widest layer)
+     and on the subtree entry of the main path over a whole 2^18-leaf
+     chunk tree of Montgomery cell hashes, canonical layers out, timed
+     beside the 18 per-layer compression launches and the plain
+     Montgomery pass it replaces, and on the main path's two calls of it
+     (the chunk cut at 2^14 nodes, a 1 GB slot's 2^15-node frontier to its
+     root).  K2
      and K6 (both cores) are held on their byte-row entries, which the main
      paths run, and on their limb-plane entries (the JAX parity API), with
      the time of the path the byte-row entries replace: the plain byte
@@ -29,8 +36,10 @@ Phases:
   5. BN254: the port CLI on two 1 GB fake-data slots (2^19 cells of 2048
      bytes), the streaming path, checked on the host: cell hashes, Merkle
      paths, the dataset proof, the witness evaluator, and the kernels'
-     launch counts from that run; then one warm 1 GB slot-root build, timed,
-     and one under torch.profiler (device time by kernel, idle share);
+     launch counts from that run (K1's subtree kernel at most 8 times, no
+     one-layer K1 launch, no plain Montgomery pass over the layers); then
+     one warm 1 GB slot-root build, timed, and one under torch.profiler
+     (device time by kernel, idle share);
   6. Goldilocks, both hashes: the port CLI on a small dataset (5 slots x
      128 cells), which must equal the oracle's export exactly;
   7. Goldilocks, each hash on its own: the port CLI with --check on two
@@ -40,7 +49,9 @@ Phases:
   8. the device verifier (models/circuit.verify_proof_input_device) on
      phase 5's proof input, which it must accept, and on three tampered
      copies (a cell felt, a path sibling, a slotProof entry), which it must
-     reject; only K1 and K2's limb-plane entry may launch;
+     reject; only K1's permutation entry and K2's limb-plane entry may
+     launch (the kernels line reports K1's permutation entry from this
+     path);
   9. the sharded proof inputs (parallel/) over the same 2 x 1 GB slots on
      a 2 x 2 mesh of shards on this one card, for BN254 and each GL hash:
      each export must equal phase 5's or 7's byte for byte, pass
@@ -105,6 +116,7 @@ from codex_storage_proofs_circuits_tpu_torch.oracle.slot import (
 from codex_storage_proofs_circuits_tpu_torch.utils.json_export import load_proof_input
 from codex_storage_proofs_circuits_tpu_torch.kernels import build
 from codex_storage_proofs_circuits_tpu_torch.kernels.timing import device_ms, events_ms
+from codex_storage_proofs_circuits_tpu_torch.models import hashing as H
 from codex_storage_proofs_circuits_tpu_torch.models import streaming as S
 from codex_storage_proofs_circuits_tpu_torch.ops import encode as E
 from codex_storage_proofs_circuits_tpu_torch.ops import fake_prng as F
@@ -132,6 +144,7 @@ _SRC = "codex_storage_proofs_circuits_tpu_torch/csrc/"
 _TPU = "codex_storage_proofs_circuits_tpu/ops/"
 # launch counter -> (name, source, TPU kernel replaced)
 KERNELS = {
+    "p2_tree": ("poseidon2_bn254_tree", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:297"),
     "perm": ("poseidon2_bn254_perm", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:297"),
     "sponge2": ("poseidon2_bn254_sponge2", _SRC + "poseidon2_bn254.cu", _TPU + "poseidon2_pallas.py:324"),
     "prng": ("fake_prng_rows", _SRC + "fake_prng.cu", _TPU + "fake_prng.py:217"),
@@ -140,12 +153,16 @@ KERNELS = {
     "gl_sponge8": ("poseidon2_gl_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
     "mono_sponge8": ("monolith_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
 }
-PATH_COUNTERS = {  # the kernels each main path must launch, and no other
-    "bn254": ("perm", "sponge2", "prng"),
+PATH_COUNTERS = {  # the kernels each path must launch, and no other
+    "bn254": ("p2_tree", "sponge2", "prng"),
     "poseidon2": ("prng", "gl_perm", "gl_sponge8"),
     "monolith": ("prng", "mono_perm", "mono_sponge8"),
+    "verifier": ("perm", "sponge2_planes"),
 }
-MAX_TREE_LAUNCHES = 12  # K4 / K5 launches of a GL path: 2 slots x (2 chunks x 2 + 1 top)
+# subtree launches of a path: K4 / K5 of a GL path, 2 slots x (2 chunks x 2
+# + 1 top); K1 of the BN254 path, 2 slots x (2 chunks cut at 2^14 nodes + 2
+# for the joined frontier)
+MAX_TREE_LAUNCHES = {"gl_perm": 12, "mono_perm": 12, "p2_tree": 8}
 CHUNK_KEYS = 0b100001  # key 1 at depths 0 and 5 of a chunk: the main path's schedule
 
 # The card's peak rates for the bound (NVIDIA H100 SXM data sheet): device
@@ -255,6 +272,63 @@ def phase_kernels(results: dict) -> None:
         results,
         (nbytes(layer) + nbytes(layer[:, 0::2]), CHUNK // 2 * BN254_PERM),
     )
+
+    # K1's subtree entry: a main-path chunk's whole tree, 2^18 Montgomery
+    # cell hashes to the root with key 1 at depths 0 and 5, canonical layers
+    # out, beside the 18 per-layer launches and the plain Montgomery pass it
+    # replaces; then the main path's two calls: the chunk cut at 2^14 nodes
+    # (4 levels) and a 1 GB slot's joined 2^15-node frontier (canonical) to
+    # its root (15 levels, from depth 4), each also held against its plain
+    # version
+    depth, keys = CHUNK.bit_length() - 1, CHUNK_KEYS
+
+    def per_layer():
+        layers = [layer]
+        for d in range(depth):
+            cur = layers[-1]
+            layers.append(P2C.compress_layer(cur[:, 0::2], cur[:, 1::2], (keys >> d) & 1))
+        return H.from_mont_layers(layers)
+
+    def joined(layers):
+        return torch.cat([lyr.reshape(-1) for lyr in layers])
+
+    def tree():
+        return P2C.tree_layers(layer, depth, keys)
+
+    compare("p2_tree", lambda: joined(tree()), lambda: joined(P2.tree_layers(layer, depth, keys)),
+            10, results,
+            (nbytes(layer) + 16 * 4 * (2 * CHUNK - 1),
+             (CHUNK - 1) * BN254_PERM + (2 * CHUNK - 1) * BN254_MUL),
+            timed=tree)
+    if not torch.equal(joined(tree()), joined(per_layer())):
+        raise AssertionError("p2_tree: the subtree entry differs from the per-layer path")
+    per_layer_ms = events_ms(per_layer, 3)  # the plain pass copies from the host
+    results["p2_tree"]["per_layer_ms"] = per_layer_ms
+    log(f"    the {depth} per-layer launches and the plain pass it replaces: {per_layer_ms:.4f} ms"
+        " (CUDA events end to end)")
+    stop = S.CHUNK_STOP_WIDTH
+    cut = P2C.tree_layers(layer, depth - stop.bit_length() + 1, keys, stop)
+    front = torch.cat([cut[-1], random_canonical(rng, (16, stop))], dim=1)
+    plans = {
+        "chunk_cut": lambda: P2C.tree_layers(layer, len(cut) - 1, keys, stop),
+        "frontier": lambda: P2C.tree_layers(front, 15, H.key_bits((0, 5), 15, len(cut) - 1),
+                                            mont=False),
+    }
+    plain_plans = {
+        "chunk_cut": lambda: P2.tree_layers(layer, len(cut) - 1, keys),
+        "frontier": lambda: P2.tree_layers(front, 15, H.key_bits((0, 5), 15, len(cut) - 1),
+                                           mont=False),
+    }
+    r = results["p2_tree"]
+    for name, fn in plans.items():
+        before = build.LAUNCHES["p2_tree"]
+        fn()
+        n = build.LAUNCHES["p2_tree"] - before
+        compare(f"p2_tree:{name}", lambda fn=fn: joined(fn()),
+                lambda plain=plain_plans[name]: joined(plain()), 10, results, timed=fn)
+        r["max_abs_err"] = max(r["max_abs_err"], results[f"p2_tree:{name}"]["max_abs_err"])
+        r[f"{name}_ms"] = results[f"p2_tree:{name}"]["ms"]
+        log(f"    main-path call {name}: {n} launches")
 
     # K3: one main-path chunk of fake cells, and a few cells against the
     # host generator
@@ -450,9 +524,9 @@ def check_launches(path: str) -> dict:
     """The counts since reset_launches(): every kernel of the path launched,
     and nothing else (no kernel of another path, no limb-plane entry)."""
     launches = check_only(path, PATH_COUNTERS[path])
-    trees = [k for k in ("gl_perm", "mono_perm") if launches.get(k, 0) > MAX_TREE_LAUNCHES]
+    trees = [k for k, cap in MAX_TREE_LAUNCHES.items() if launches.get(k, 0) > cap]
     if trees:
-        raise AssertionError(f"{path}: more than {MAX_TREE_LAUNCHES} tree launches: {trees}")
+        raise AssertionError(f"{path}: more tree launches than {MAX_TREE_LAUNCHES}: {trees}")
     return launches
 
 
@@ -476,13 +550,32 @@ def phase_full(tmp: str) -> tuple[dict, dict]:
     glob, dset = cli.configs_from_args(args)
 
     reset_launches()
-    t0 = time.perf_counter()
-    if cli.main(argv) != 0:
-        raise AssertionError("cspc-torch failed on the 1 GB slots")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    plain_passes = []
+    from_mont = L.from_mont
+
+    def counted_from_mont(a):
+        # every plain Montgomery-to-canonical pass (limbs.from_mont, which
+        # models/hashing.py::from_mont_layers also runs), by its caller; the
+        # circuit checker's pass over the sampled indices (--check) is not
+        # the tree's
+        caller = sys._getframe(1).f_code
+        if not caller.co_filename.endswith(os.path.join("models", "circuit.py")):
+            plain_passes.append(f"{caller.co_filename}:{caller.co_name} {tuple(a.shape)}")
+        return from_mont(a)
+
+    L.from_mont = counted_from_mont
+    try:
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError("cspc-torch failed on the 1 GB slots")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        L.from_mont = from_mont
     launches = check_launches("bn254")
-    log(f"  2 x 1 GB proof input: {wall:.2f} s, launches {launches}")
+    if plain_passes:
+        raise AssertionError(f"a plain Montgomery pass ran on the BN254 path: {plain_passes}")
+    log(f"  2 x 1 GB proof input: {wall:.2f} s, launches {launches}, no plain Montgomery pass")
 
     pi = load_proof_input(out)
     cfg = slot_cfg_from_dataset_cfg(glob, dset, pi.slot_index)
@@ -601,8 +694,8 @@ def profile_root(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     def group(name: str) -> str:
-        if "p2_perm_kernel" in name:
-            return "K1 perm"
+        if "p2_tree_kernel" in name or "p2_perm_kernel" in name:
+            return "K1 tree and perm"
         if "p2_sponge2_kernel" in name:
             return "K2 sponge2"  # the byte-row entry on the main path
         if "fake_prng_rows_kernel" in name:
@@ -691,9 +784,9 @@ def phase_full_gl(tmp: str, hash_fun: str) -> tuple[dict, dict]:
     return launches, {"argv": argv, "out": out, "wall": wall}
 
 
-def phase_verifier(run: dict) -> None:
+def phase_verifier(run: dict) -> dict:
     """verify_proof_input_device on the clean proof input and on three
-    tampered copies, with the launch counts of the four calls."""
+    tampered copies; returns the launch counts of the four calls."""
     import dataclasses
 
     pi = run["pi"]
@@ -713,7 +806,9 @@ def phase_verifier(run: dict) -> None:
         log(f"  {label}: verify_proof_input_device -> {got} in {wall * 1e3:.1f} ms")
         if got != want:
             raise AssertionError(f"device verifier on the {label} proof input: {got}, want {want}")
-    log(f"  launches {check_only('verifier', ('perm', 'sponge2_planes'))}")
+    launches = check_only("verifier", PATH_COUNTERS["verifier"])
+    log(f"  launches {launches}")
+    return launches
 
 
 def timed(fn):
@@ -746,7 +841,7 @@ def phase_sharded(tmp: str, runs: dict) -> None:
 
             def sharded():
                 return PAR.sharded_proof_input(glob, dset, args.index, args.entropy, mesh)
-            allowed = ("perm", "sponge2", "prng")
+            allowed = (*PATH_COUNTERS["bn254"], "perm")  # perm: the dataset level, sampling
         else:
             def single():
                 return cli.generate_gl(field, glob, dset, args.index, args.entropy, dev)
@@ -909,7 +1004,7 @@ def main() -> int:
         for hash_fun in HASHES:
             launches[hash_fun], runs[hash_fun] = phase_full_gl(tmp, hash_fun)
         log("[8] device verifier on the 2 x 1 GB BN254 proof input")
-        phase_verifier(runs["bn254"])
+        launches["verifier"] = phase_verifier(runs["bn254"])
         log("[9] sharded proof inputs, 2 x 1 GB, a 2 x 2 mesh of shards on one card")
         phase_sharded(tmp, runs)
         log("[10] checkpoint resume of a 1 GB BN254 slot")
@@ -923,6 +1018,11 @@ def main() -> int:
         r = results[key]
         log(f"  {key}: kernel {r['ms']:.4f} ms, with the plain passes before it"
             f" {r['unfused_ms']:.4f} ms; byte-row entry {results[key.split(':')[0]]['ms']:.4f} ms")
+    r = results["p2_tree"]
+    log(f"  p2_tree: chunk tree by the subtree entry {r['ms']:.4f} ms (bound {r['bound_ms']:.4f},"
+        f" {100 * r['bound_ms'] / r['ms']:.1f} %), by {CHUNK.bit_length() - 1} per-layer launches"
+        f" and the plain pass {r['per_layer_ms']:.4f} ms; main path: chunk cut"
+        f" {r['chunk_cut_ms']:.4f} ms, frontier to the root {r['frontier_ms']:.4f} ms")
     for key in ("gl_perm", "mono_perm"):
         r, lay = results[key], results[f"{key}:layer"]
         log(f"  {key}: chunk tree by the subtree entry {r['ms']:.4f} ms (bound {r['bound_ms']:.4f},"

@@ -1,9 +1,13 @@
-// BN254 Poseidon2 t=3 on Hopper: K1 (permutation / keyed compression) and
-// K2 (rate-2 sponge: the whole cell-hash step, cell bytes in).
+// BN254 Poseidon2 t=3 on Hopper: K1 (permutation / keyed compression, and
+// on the main path the subtree kernel, which makes many Merkle tree levels
+// a launch and writes them canonical) and K2 (rate-2 sponge: the whole
+// cell-hash step, cell bytes in).
 //
 // Replaces the Pallas TPU kernels of
 // codex_storage_proofs_circuits_tpu/ops/poseidon2_pallas.py:
-//   K1  _perm_kernel     (permutation, compress)
+//   K1  _perm_kernel     (permutation, compress; the tree above the cell
+//       hashes, together with the plain Montgomery-to-canonical pass over
+//       its layers: JAX models/hashing.py::slot_tree_from_felts)
 //   K2  _sponge2_kernel  (sponge2_absorb), together with the byte encode,
 //       the Montgomery conversion and the felt padding that feed it
 //       (JAX ops/encode.py, models/hashing.py::hash_cells_mont).
@@ -63,6 +67,7 @@
 // The Montgomery quotient factor with 32-bit limbs is -P^-1 mod 2^32 =
 // 0xEFFFFFFF (FR_PINV in the generated header).
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -549,6 +554,99 @@ inline unsigned n_blocks(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// The subtree kernel: K1 on the main path.  A CTA takes `tile` consecutive
+// nodes of the (16, w) layer x (row and column strides, read in place) and
+// reduces them `levels` levels: the first level's keyed compressions read
+// x's column pairs from device memory (Montgomery form with mont_in, else
+// canonical values, taken into Montgomery form by one product by R^2), and
+// every later one reads the level below from shared memory (the Montgomery
+// values below 2P, 32 B a node, word-major, two buffers taking turns).
+// Every node of every level is written in canonical form (one Montgomery
+// product by 1, then fr_canon: 264 multiplies, against 54,400 for the
+// compression) to that level's (16, w >> j) plane in out (level 1 at out,
+// each next level right after the one before); with out0, the layer x too,
+// canonical, as a (16, w) plane.  Level j uses key bit j - 1 of key_mask.
+//
+// Below 2^14 compressions a level no longer fills the card (132 SMs x 4
+// schedulers x 32 lanes) and waits on one permutation's latency whatever its
+// width: 0.133 ms on an H100 (tools_torch/p2_tree_widths.py, PERF.md).  A
+// launch whose first level fills the card takes tiles of 2^11 nodes in CTAs
+// of 256 threads, one CTA an SM: a 2^18-node chunk cut at 2^14 nodes is 128
+// CTAs, four compressions a thread at the first level, and at the fourth
+// one warp on each of an SM's four schedulers (with smaller tiles several
+// CTAs share an SM, and each CTA's few active warps at its narrow levels
+// crowd the same schedulers).  A narrower launch, latency-bound, takes tiles
+// of 2^8 nodes, one compression a thread, so that a 1 GB slot's joined
+// 2^15-node frontier spreads over 128 SMs (8 levels), a warp alone on each
+// scheduler; one CTA takes a layer of at most 2^8 nodes to its roots (the
+// frontier's last 7 levels).  The constants were chosen on an H100 by
+// tools_torch/tile_sweep.py --field=bn254 (PERF.md): tiles of 2^9 nodes in
+// CTAs of 128 threads, a cap of 64 registers and an S-box inlined into the
+// narrow launches each measured slower.
+constexpr int kTreeThreads = 256;
+constexpr int kWideTileLog = 11;   // tile of a launch whose first level fills the card
+constexpr int kNarrowTileLog = 8;  // tile of a narrower launch
+constexpr int kTopLog = 8;         // a layer of at most 2^8 nodes is one CTA's
+constexpr int kNarrowLog = 15;     // launches on at most 2^15 nodes are narrow
+constexpr int kTile = 1 << kWideTileLog;
+
+__device__ __forceinline__ Fr fr_from_mont(const Fr& v) {
+  constexpr uint32_t kOne[8] = {1, 0, 0, 0, 0, 0, 0, 0};
+  return fr_canon(fr_mul(v, fr_const(kOne)));  // v / R mod P, below 2P, then below P
+}
+
+__global__ void __launch_bounds__(kTreeThreads, 1)
+p2_tree_kernel(const int32_t* __restrict__ x, long long xrs, long long xcs, int mont_in,
+               int32_t* __restrict__ out0, int32_t* __restrict__ out, long long w, int levels,
+               int tile, unsigned key_mask) {
+  constexpr int cap0 = kTile / 2, cap1 = kTile / 4;
+  __shared__ uint32_t smem[8 * (cap0 + cap1)];
+  uint32_t* const buf0 = smem;             // odd levels
+  uint32_t* const buf1 = smem + 8 * cap0;  // even levels
+  const long long base = (long long)blockIdx.x * tile;
+  const int cnt = (int)min((long long)tile, w - base);
+  int32_t* lvl = out;
+  for (int j = 1; j <= levels; j++) {
+    const int n = cnt >> j;
+    const long long gw = w >> j, gb = base >> j;
+    const bool odd = j & 1;
+    const uint32_t* src = odd ? buf1 : buf0;
+    const int scap = odd ? cap1 : cap0;
+    uint32_t* dst = odd ? buf0 : buf1;
+    const int dcap = odd ? cap0 : cap1;
+    const Fr key = fr_const(P2_KEYS[(key_mask >> (j - 1)) & 1u]);
+    // child c (0 or 1) of node i, in Montgomery form
+    auto child = [&](int i, int c) -> Fr {
+      const int k = 2 * i + c;
+      Fr v;
+      if (j == 1) {
+        v = load_fr(x, xrs, (base + k) * xcs);
+        if (mont_in) {
+          if (out0) store_fr(out0, w, base + k, fr_from_mont(v));
+        } else {
+          constexpr uint32_t kR2[8] = FR_R2_WORDS;
+          v = fr_mul(v, fr_const(kR2));
+        }
+      } else {
+#pragma unroll
+        for (int l = 0; l < 8; l++) v.w[l] = src[l * scap + k];
+      }
+      return v;
+    };
+    for (int i = threadIdx.x; i < n; i += kTreeThreads) {
+      Fr X = child(i, 0), Y = child(i, 1), Z = key;
+      permute(X, Y, Z);
+      if (j < levels) {
+#pragma unroll
+        for (int l = 0; l < 8; l++) dst[l * dcap + i] = X.w[l];
+      }
+      store_fr(lvl, gw, gb + i, fr_from_mont(X));
+    }
+    __syncthreads();
+    lvl += 16 * gw;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -587,6 +685,33 @@ int cspc_p2_sponge2_rows(const uint8_t* rows, long long row_stride, long long co
   if (n > 0)
     p2_sponge2_kernel<ByteRows><<<n_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
         ByteRows{rows, row_stride, col_stride, cell_size, (cell_size + 31) / 31}, out, n);
+  return (int)cudaGetLastError();
+}
+
+// The subtree kernel, one launch: reduces the (16, w) layer x by as many
+// of `levels` levels as one launch takes (all of them when w <= 2^8, in one
+// CTA; else min(levels, 8) in CTAs of 2^8 nodes when w <= 2^15, else
+// min(levels, 11) in CTAs of 2^11 nodes), writing each level's
+// canonical (16, w >> j) plane into out one after another, level j with key
+// bit j - 1 of key_mask; x is in Montgomery form when mont_in (then out0, if
+// not null, receives x canonical), else canonical.  *done is set to the
+// levels made.  w must be a multiple of 2^(levels made).
+int cspc_p2_tree(const int32_t* x, long long xrs, long long xcs, int mont_in, int32_t* out0,
+                 int32_t* out, long long w, int levels, unsigned key_mask, int* done,
+                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (levels < 1 || levels > 31 || w < 2 || (out0 && !mont_in)) return (int)cudaErrorInvalidValue;
+  const bool top = w <= (1LL << kTopLog), narrow = w <= (1LL << kNarrowLog);
+  const int tile_log = narrow ? kNarrowTileLog : kWideTileLog;
+  const int lev = top ? levels : std::min(levels, tile_log);
+  if (w % (1LL << lev)) return (int)cudaErrorInvalidValue;
+  const int tile = top ? (int)w : 1 << tile_log;
+  const unsigned grid = (unsigned)((w + tile - 1) / tile);
+  cudaStream_t st = (cudaStream_t)stream;
+  p2_tree_kernel<<<grid, kTreeThreads, 0, st>>>(x, xrs, xcs, mont_in, out0, out, w, lev, tile,
+                                                 key_mask);
+  *done = lev;
   return (int)cudaGetLastError();
 }
 

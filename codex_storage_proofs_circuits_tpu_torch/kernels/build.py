@@ -39,12 +39,14 @@ NVCC_FLAGS = [
 ]
 NVCC_TIMEOUT_S = 900
 
-# Launch counts of the kernels: K1 "perm", K2 "sponge2", K3 "prng",
-# K4 "gl_perm", K5 "mono_perm", K6 "gl_sponge8" / "mono_sponge8".  K2 and
-# K6 count their byte-row entries (the main paths') under those names and
-# their limb-plane entries (the JAX parity API) under "..._planes".
+# Launch counts of the kernels: K1 "p2_tree" (the subtree kernel of the
+# main path) and "perm" (its one-layer permutation and compression entry),
+# K2 "sponge2", K3 "prng", K4 "gl_perm", K5 "mono_perm", K6 "gl_sponge8" /
+# "mono_sponge8".  K2 and K6 count their byte-row entries (the main paths')
+# under those names and their limb-plane entries (the JAX parity API) under
+# "..._planes".
 LAUNCHES = {
-    "perm": 0, "sponge2": 0, "prng": 0,
+    "p2_tree": 0, "perm": 0, "sponge2": 0, "prng": 0,
     "gl_perm": 0, "mono_perm": 0, "gl_sponge8": 0, "mono_sponge8": 0,
     "sponge2_planes": 0, "gl_sponge8_planes": 0, "mono_sponge8_planes": 0,
 }
@@ -56,6 +58,9 @@ _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     # x, xrs, xcs, y, yrs, ycs, z, zrs, zcs, key, out, out_lanes, n, device, stream
     "cspc_p2_perm": [_VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _I, _VP, _I, _LL, _I, _VP],
+    # x, xrs, xcs, mont_in, out0, out, w, levels, key_mask, done, device, stream
+    "cspc_p2_tree": [_VP, _LL, _LL, _I, _VP, _VP, _LL, _I, ctypes.c_uint,
+                     ctypes.POINTER(ctypes.c_int), _I, _VP],
     # blocks, nb, out, n, device, stream
     "cspc_p2_sponge2": [_VP, _I, _VP, _LL, _I, _VP],
     # rows, row_stride, col_stride, cell_size, out, n, device, stream

@@ -3,8 +3,10 @@
 Port of codex_storage_proofs_circuits_tpu/models/hashing.py.  One launch
 of kernel K2 hashes every cell of a batch at once, straight from its byte
 rows (the byte encode, the Montgomery form and the felt padding happen in
-the kernel), and each Merkle layer is one batched keyed compression
-(kernel K1) over the full layer width.  Layers are (NL, W) int32 limb
+the kernel), and the subtree kernel (K1) builds the slot tree's layers
+from the cell hashes, many levels a launch, and writes them canonical.
+tree_reduce_layers keeps the JAX twin's API (Montgomery layers, one
+batched keyed compression a layer).  Layers are (NL, W) int32 limb
 planes.  The felt entry points (hash_cells_mont, slot_tree_from_felts) are
 the JAX package's API, kept for the parity tests.
 
@@ -28,6 +30,7 @@ NL = L.NL
 # CPU tensors take the plain versions.
 permute = P2C.permutation  # (3, NL, B) -> (3, NL, B)
 compress_layer = P2C.compress_layer  # (NL, B), (NL, B), key -> (NL, B)
+tree_layers = P2C.tree_layers  # (NL, B) layer, levels, key bits -> canonical layers
 sponge2_scan = P2C.sponge2_absorb  # (nb, 2, NL, B) -> (NL, B)
 hash_cells_rows = P2C.sponge2_rows  # (cell_size, B) uint8 rows -> (NL, B)
 
@@ -44,6 +47,12 @@ def _check_width(b: int, stop_width: int) -> None:
     per = b // stop_width
     if per & (per - 1):
         raise ValueError(f"tree width {per} is not a power of two")
+
+
+def key_bits(bottom_depths: tuple[int, ...], levels: int, depth_offset: int = 0) -> int:
+    """tree_layers' key bits: bit j set where the compression at depth
+    depth_offset + j takes the bottom-layer key 1 (tree_reduce_layers)."""
+    return sum(1 << j for j in range(levels) if depth_offset + j in bottom_depths)
 
 
 def tree_reduce_layers(
@@ -138,10 +147,9 @@ def from_mont_layers(layers: list[torch.Tensor]) -> list[torch.Tensor]:
 
 
 def _slot_tree(hashes: torch.Tensor, block_tree_depth: int, n_groups: int) -> list[torch.Tensor]:
-    layers = tree_reduce_layers(
-        hashes, bottom_depths=(0, block_tree_depth), stop_width=n_groups
-    )
-    return from_mont_layers(layers)
+    _check_width(hashes.shape[1], n_groups)
+    levels = (hashes.shape[1] // n_groups).bit_length() - 1
+    return tree_layers(hashes, levels, key_bits((0, block_tree_depth), levels), n_groups)
 
 
 def slot_tree_from_rows(

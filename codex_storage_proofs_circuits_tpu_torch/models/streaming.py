@@ -12,15 +12,24 @@ A fake-data chunk is one pass on the device, with no cell bytes crossing
 from the host: seed bases (32 B) -> PRNG (kernel K3) -> (cell_size, B)
 byte rows -> the cell hashes, straight from the rows (K2 for BN254, K6 for
 Goldilocks: the byte encode, and for BN254 the Montgomery form, happen in
-the kernel) -> the tree: one compression launch per layer for BN254 (K1),
-two launches of the subtree kernel for a Goldilocks chunk (K4 for
-Poseidon2-GL, K5 for Monolith).  File-backed data loads on the host,
-crosses per chunk and is read in place as a (B, cell_size).T view.
+the kernel) -> the tree, by the subtree kernels (K1 for BN254; K4 for
+Poseidon2-GL, K5 for Monolith: two launches a Goldilocks chunk).
+File-backed data loads on the host, crosses per chunk and is read in place
+as a (B, cell_size).T view.
+
+A BN254 chunk's layers stop at CHUNK_STOP_WIDTH nodes (one launch
+of K1), and the joined frontier of all the chunks goes to the slot root in
+one call of the subtree entry: the narrow levels, where a level waits on
+one permutation's latency however few nodes it has, are paid once a slot
+and not once a chunk.  Chunks are aligned power-of-two subtrees, so the
+frontier is itself a power-of-two tree and its layers are the chunks'
+layers concatenated.
 
 A BN254 build can checkpoint each finished chunk's digest layers and
 resume from them (ChunkCheckpoint, in the JAX package's on-disk format, so
-a checkpoint written by either package resumes in the other).  Goldilocks
-builds have no checkpoint, as in the JAX package.
+a checkpoint written by either package resumes in the other); with a
+checkpoint, chunks go to their chunk roots, as that format holds them.
+Goldilocks builds have no checkpoint, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +58,11 @@ from . import hashing as H
 # 2^16 launches leave most of each SM's room for resident warps empty), at a
 # peak of 1.2 GiB.  The root and the layers do not depend on the chunk size.
 DEFAULT_CHUNK_CELLS = 1 << 18
+# Below about 2^14 compressions a BN254 level no longer fills the card (132
+# SMs x 4 schedulers x 32 lanes) and takes one permutation's latency
+# (tools_torch/p2_tree_widths.py, PERF.md): a chunk's layers stop at this
+# width, and the levels above it are built once for the whole slot.
+CHUNK_STOP_WIDTH = 1 << 14
 
 
 # ---------------------------------------------------------------------------
@@ -164,20 +178,20 @@ def stream_range(cfg: SlotConfig, start: int, n: int, chunk_cells: int, stats, d
     """The chunk loop shared by both fields, over cells start..start+n-1 of
     a slot (n a power of two, start a multiple of n): the layers of that
     aligned subtree, its root last.  tree(rows, btd): a chunk's layers from
-    its (cell_size, B) byte rows; tops(chunk roots, btd, chunk depth): the
-    layers above the chunks.  Layers concatenate on their last axis.  With
-    ckpt, finished chunks are read back and new ones saved; with
-    stop_after_chunks, the build returns None once that many chunks were
-    newly computed."""
+    its (cell_size, B) byte rows, to its root or to a width every chunk
+    stops at; tops(frontier, btd, depth): the layers above the chunks'
+    joined last layer, which lies at that depth.  Layers concatenate on
+    their last axis.  With ckpt, finished chunks are read back and new ones
+    saved; with stop_after_chunks, the build returns None once that many
+    chunks were newly computed."""
     btd = cfg.cells_per_block.bit_length() - 1
     chunk_cells = min(chunk_cells, n)
     if n & (n - 1) or start % n or chunk_cells & (chunk_cells - 1) or n % chunk_cells:
         raise ValueError(f"chunks of {chunk_cells} cells do not tile cells {start}..+{n}")
     n_chunks = n // chunk_cells
-    chunk_depth = chunk_cells.bit_length() - 1
     st = stats if stats is not None else StreamingStats()
 
-    segments: list[list[torch.Tensor]] = [[] for _ in range(chunk_depth + 1)]
+    segments: list[list[torch.Tensor]] = []
     new_chunks = 0
     for c in range(n_chunks):
         if ckpt is not None and c in ckpt.done:
@@ -197,14 +211,18 @@ def stream_range(cfg: SlotConfig, start: int, n: int, chunk_cells: int, stats, d
                 t0 = time.perf_counter()
                 ckpt.save(c, layers)
                 st.save_s += time.perf_counter() - t0
+        if not segments:
+            segments = [[] for _ in layers]
+        if len(layers) != len(segments):
+            raise ValueError("the chunks' layer stacks differ in depth")
         for d, lyr in enumerate(layers):
             segments[d].append(lyr)
 
     t0 = time.perf_counter()
     out = [torch.cat(seg, dim=-1) for seg in segments]
-    if n_chunks > 1:
-        # reduce the chunk roots; keys follow the global depth schedule
-        out.extend(tops(out[-1], btd, chunk_depth))
+    if out[-1].shape[-1] > 1:
+        # reduce the joined frontier; keys follow the global depth schedule
+        out.extend(tops(out[-1], btd, len(out) - 1))
     if out[-1].device.type == "cuda":
         torch.cuda.synchronize(out[-1].device)
     st.finalize_s += time.perf_counter() - t0
@@ -218,10 +236,17 @@ def _full_slot(cfg: SlotConfig, chunk_cells: int) -> int:
 
 
 def bn254_tops(roots: torch.Tensor, btd: int, depth: int) -> list[torch.Tensor]:
-    """The BN254 layers above a row of canonical subtree roots at tree
-    depth `depth` (their own layer excluded), canonical."""
-    layers = H.tree_reduce_layers(L.to_mont(roots), bottom_depths=(0, btd), depth_offset=depth)
-    return H.from_mont_layers(layers[1:]) if len(layers) > 1 else []
+    """The BN254 layers above a power-of-two row of canonical subtree roots
+    at tree depth `depth` (their own layer excluded), canonical."""
+    levels = roots.shape[1].bit_length() - 1
+    return H.tree_layers(roots, levels, H.key_bits((0, btd), levels, depth), mont=False)[1:]
+
+
+def bn254_rows_tree(rows: torch.Tensor, btd: int) -> list[torch.Tensor]:
+    """A BN254 chunk's layers from its byte rows, down to CHUNK_STOP_WIDTH
+    nodes (its root when the chunk is no wider)."""
+    trees = CHUNK_STOP_WIDTH if rows.shape[1] > CHUNK_STOP_WIDTH else 1
+    return H.slot_tree_from_rows(rows, btd, n_groups=trees)
 
 
 def gl_tops(hash_fun: str):
@@ -260,12 +285,15 @@ def streaming_slot_layers(
     checkpoint_dir: save each finished chunk's digest layers there and
     resume any matching earlier build (ChunkCheckpoint).  stop_after_chunks:
     stop after that many newly computed chunks and return None (to test
-    resume, or to yield to a scheduler).
+    resume, or to yield to a scheduler).  Without a checkpoint a chunk's
+    layers stop at CHUNK_STOP_WIDTH nodes, and the layers above are built
+    from all the chunks at once.
     """
     chunk_cells = _full_slot(cfg, chunk_cells)
     ckpt = ChunkCheckpoint(checkpoint_dir, cfg, chunk_cells) if checkpoint_dir else None
+    tree = H.slot_tree_from_rows if ckpt else bn254_rows_tree
     return stream_range(cfg, 0, cfg.n_cells, chunk_cells, stats, device,
-                        H.slot_tree_from_rows, bn254_tops, ckpt, stop_after_chunks)
+                        tree, bn254_tops, ckpt, stop_after_chunks)
 
 
 def streaming_slot_root(

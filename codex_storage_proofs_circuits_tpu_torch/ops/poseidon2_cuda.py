@@ -3,12 +3,15 @@ K2 (rate-2 sponge), csrc/poseidon2_bn254.cu.
 
 Port of codex_storage_proofs_circuits_tpu/ops/poseidon2_pallas.py
 (`permutation`, `compress`, `sponge2_absorb`), and `sponge2_rows`, the
-whole cell-hash step from byte rows in one K2 launch.  A CUDA tensor
+whole cell-hash step from byte rows in one K2 launch, and `tree_layers`,
+the keyed compressions of many tree layers in one launch of the subtree
+kernel (K1 on the main path), which writes them canonical.  A CUDA tensor
 launches the kernel; a CPU tensor goes to the plain version
 (ops/poseidon2_plain.py).  Each launch adds one to
-kernels.build.LAUNCHES["perm"], ["sponge2"] (byte rows) or
-["sponge2_planes"] (limb planes).  Planes are int32 16-bit limbs in
-canonical Montgomery form (< P).
+kernels.build.LAUNCHES["p2_tree"] (subtree), ["perm"] (permutation and
+compression), ["sponge2"] (byte rows) or ["sponge2_planes"] (limb planes).
+Planes are int32 16-bit limbs in canonical Montgomery form (< P), but for
+the canonical layers tree_layers returns.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from ..kernels import build
+from . import limbs as L
 from . import poseidon2_plain as plain
 
 NL = plain.NL
@@ -64,6 +68,58 @@ def compress_layer(x: torch.Tensor, y: torch.Tensor, key: int) -> torch.Tensor:
     for t in (x, y):
         build.require_cuda(t, "compress_layer", torch.int32, (NL, x.shape[1]))
     return _launch_perm(x, y, None, key, 1)[0]
+
+
+def tree_layers(layer: torch.Tensor, levels: int, key_bits: int, stop_width: int = 1,
+                mont: bool = True) -> list[torch.Tensor]:
+    """The `levels` keyed compression layers above a (NL, W) layer of
+    `stop_width` power-of-two trees side by side (W = stop_width << levels),
+    all canonical: [layer 0, layer 1, ..., layer `levels`], layer j + 1 (of
+    width W >> (j + 1)) pairing the columns of layer j with key
+    (key_bits >> j) & 1.  `layer` is in Montgomery form (mont, the cell
+    hashes; layer 0 is then returned canonical) or canonical (not mont, the
+    roots of subtrees; layer 0 is then `layer` itself).  On the card the
+    subtree kernel makes them in one launch for W <= 2^8, else in launches
+    of up to 11 levels (8 once the width is at most 2^15) until the width is
+    at most 2^8, then one more (a 2^18-node chunk cut at 2^14 nodes: one
+    launch; a 1 GB slot's 2^15-node joined frontier to its root: two; a
+    2^18-node chunk to its root: two); the layers are contiguous views of
+    one buffer."""
+    w = layer.shape[1]
+    if not 0 <= levels <= 31 or stop_width < 1 or w != stop_width << levels:
+        raise ValueError(f"tree_layers: width {w} is not {stop_width} trees of 2^{levels}")
+    if layer.device.type == "cpu":
+        return plain.tree_layers(layer, levels, key_bits, mont)
+    build.require_cuda(layer, "tree_layers", torch.int32, (NL, None))
+    if levels == 0:  # no compression: one node a tree
+        return [L.from_mont(layer) if mont else layer]
+    size = w - stop_width + (w if mont else 0)
+    out = torch.empty(NL * size, dtype=torch.int32, device=layer.device)
+    dev, stream = build.launch_args(layer)
+    layers, off = [], 0
+    if mont:
+        layers.append(out[: NL * w].view(NL, w))
+        off = NL * w
+    else:
+        layers.append(layer)
+    cur, done = layer, ctypes.c_int(0)
+    while len(layers) <= levels:
+        first = cur is layer
+        made = len(layers) - 1
+        err = build.load().cspc_p2_tree(
+            _ptr(cur), cur.stride(0), cur.stride(1), int(first and mont),
+            _ptr(layers[0]) if first and mont else None,
+            ctypes.c_void_p(out.data_ptr() + 4 * off), cur.shape[1], levels - made,
+            (key_bits >> made) & 0xFFFFFFFF, ctypes.byref(done), dev, stream,
+        )
+        build.check(err, "poseidon2 subtree kernel")
+        build.LAUNCHES["p2_tree"] += 1
+        for _ in range(done.value):
+            gw = cur.shape[1] // 2
+            cur = out[off : off + NL * gw].view(NL, gw)
+            layers.append(cur)
+            off += NL * gw
+    return layers
 
 
 def sponge2_absorb(blocks: torch.Tensor) -> torch.Tensor:

@@ -112,6 +112,25 @@ def compress(x: torch.Tensor, y: torch.Tensor, key_mont: torch.Tensor) -> torch.
     return _permute(st)[:, 0].to(x.dtype)
 
 
+def tree_layers(layer: torch.Tensor, levels: int, key_bits: int,
+                mont: bool = True) -> list[torch.Tensor]:
+    """The plain version of the subtree kernel (ops/poseidon2_cuda.py
+    tree_layers, where the arguments are described): one compression a
+    layer, layer j + 1 with key (key_bits >> j) & 1, then every layer out
+    of Montgomery form in one multiply (`layer` itself stays when it came
+    in canonical)."""
+    cur = layer if mont else L.to_mont(layer)
+    layers = [cur]
+    for j in range(levels):
+        cur = compress(cur[:, 0::2], cur[:, 1::2], KEY_MONT[(key_bits >> j) & 1])
+        layers.append(cur)
+    canon = L.from_mont(torch.cat(layers, dim=1))
+    out = list(torch.split(canon, [lyr.shape[1] for lyr in layers], dim=1))
+    if not mont:
+        out[0] = layer
+    return out
+
+
 def sponge2_absorb(blocks: torch.Tensor) -> torch.Tensor:
     """Rate-2 sponge over pre-padded blocks.
 

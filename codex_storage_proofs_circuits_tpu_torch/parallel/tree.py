@@ -40,7 +40,7 @@ from typing import Callable
 import torch
 
 from ..models import hashing as H
-from ..models.streaming import DEFAULT_CHUNK_CELLS, bn254_tops, stream_range
+from ..models.streaming import DEFAULT_CHUNK_CELLS, bn254_rows_tree, bn254_tops, stream_range
 from ..ops import limbs as L
 from .distributed import sum_over_processes
 from .mesh import Mesh, cells_axis, slots_axis
@@ -51,10 +51,12 @@ NL = L.NL
 @dataclass(frozen=True)
 class FieldOps:
     """A field's tree functions, all canonical in and out.  node: the shape
-    of a node's limb planes (a layer is node + (w,)); felts_tree /
-    rows_tree(x, btd): the layers of one power-of-two subtree, its root
-    last; tops(roots, btd, depth): the layers above a row of subtree roots
-    at that depth; general(leaves): the odd-width dataset tree."""
+    of a node's limb planes (a layer is node + (w,)); felts_tree(felts,
+    btd): the layers of one power-of-two subtree, its root last;
+    rows_tree(rows, btd): a chunk's layers for models/streaming.stream_range;
+    tops(roots, btd, depth): the layers above a row of subtree roots at that
+    depth; general(leaves): the odd-width tree of the oracle's merkle_tree
+    (the dataset tree, and the root of a single-block slot)."""
 
     node: tuple[int, ...]
     felts_tree: Callable
@@ -67,7 +69,7 @@ def _bn254_general(roots: torch.Tensor) -> list[torch.Tensor]:
     return H.from_mont_layers(H.tree_reduce_general(L.to_mont(roots)))
 
 
-BN254 = FieldOps((NL,), H.slot_tree_from_felts, H.slot_tree_from_rows, bn254_tops, _bn254_general)
+BN254 = FieldOps((NL,), H.slot_tree_from_felts, bn254_rows_tree, bn254_tops, _bn254_general)
 
 
 def join(shards: list[torch.Tensor]) -> torch.Tensor:
@@ -111,9 +113,14 @@ def build_dataset(ops: FieldOps, shard_layers, n_cells: int, n_slots_padded: int
     n_local = _log2(w, "cells a shard")
     n_top = n_cs.bit_length() - 1
     per = n_slots_padded // n_rows
+    # a single-block slot: the oracle's tree over its one block root is a
+    # singleton bottom, which still gets one bottom-odd compression (key 3
+    # against zero, oracle/merkle.py merkle_tree), as models/slot_tree.py
+    # gives it on one device
+    single_block = n_cells == 1 << btd
 
     locs = [[None] * n_slots_padded for _ in range(n_local)]
-    tops = [[None] * n_slots_padded for _ in range(n_top + 1)]
+    tops = [[None] * n_slots_padded for _ in range(n_top + 1 + single_block)]
     nodes: dict[tuple[int, int], torch.Tensor] = {}
     for s in range(n_slots):
         g = s // per
@@ -145,7 +152,10 @@ def build_dataset(ops: FieldOps, shard_layers, n_cells: int, n_slots_padded: int
         frontiers = {s: row_frontier(s, lambda c, s=s: nodes[s, c])
                      for s in range(n_slots) if mesh.local_row(s // per)}
     for s, front in frontiers.items():
-        for d, lyr in enumerate([front, *ops.tops(front, btd, n_local)]):
+        layers = [front, *ops.tops(front, btd, n_local)]
+        if single_block:
+            layers.append(ops.general(layers[-1])[-1])
+        for d, lyr in enumerate(layers):
             tops[d][s] = lyr
 
     # the slot roots, gathered for the dataset tree

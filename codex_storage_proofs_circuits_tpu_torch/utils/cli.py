@@ -2,9 +2,17 @@
 
 The flag surface and defaults of the JAX package's `cspc-tpu`
 (codex_storage_proofs_circuits_tpu/utils/cli.py, itself mirroring the
-reference cli.nim:80-105), with `--device` in place of `--backend`.  Both
-fields: goldilocks (the reference's default) with `--hash=poseidon2` or
+reference cli.nim:80-105), with `--device` besides.  Both fields:
+goldilocks (the reference's default) with `--hash=poseidon2` or
 `--hash=monolith`, and bn254 with Poseidon2.
+
+`--backend` takes the JAX CLI's choices, so that the scripts of workflow/
+drive either CLI unchanged:
+  - oracle: the port's pure-Python oracle on the host (no device);
+  - auto (the default) and tpu: the port's device path on `--device`
+    (cuda by default; tpu is the JAX CLI's name for its accelerator path);
+  - native: the JAX package's host C library, which the port does not
+    have by design; exits non-zero.
 
 Example:
     cspc-torch -v --nslots=5 --ncells=256 --nsamples=5 --hash=monolith \\
@@ -79,8 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-H", "--hash", type=str, default="poseidon2",
                    choices=["poseidon2", "monolith"],
                    help="the hash function to use")
+    p.add_argument("--backend", type=str, default="auto",
+                   choices=["auto", "oracle", "tpu", "native"],
+                   help="compute path: oracle = the pure-Python oracle on the host; auto and "
+                        "tpu = the device path on --device (tpu is cspc-tpu's name for its "
+                        "accelerator path); native is not ported and exits with an error")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the computation (cuda, cuda:N or cpu)")
+                   help="torch device of the device path (cuda, cuda:N or cpu; default cuda)")
     p.add_argument("--check", action="store_true",
                    help="after generation, check the proof input against the circuit's "
                         "semantics (bn254: check_circuit_semantics; goldilocks: "
@@ -164,12 +177,16 @@ def main(argv=None) -> int:
         raise SystemExit(
             f"slot index {args.index} out of range (dataset has {args.nslots} slots)"
         )
-    device = _device(args.device)
+    if args.backend == "native":
+        raise SystemExit("--backend=native: the host C library (native/ of the JAX package) is"
+                         " not ported by design; use --backend=oracle, auto or tpu")
+    device = None if args.backend == "oracle" else _device(args.device)
     glob, dset = configs_from_args(args)
 
     if args.verbose:
         print(f"field      = {args.field}")
         print(f"hash func. = {args.hash}")
+        print(f"backend    = {args.backend}")
         print(f"device     = {device}")
         print(f"maxDepth   = {glob.max_depth}")
         print(f"maxSlots   = {1 << glob.max_log2_n_slots}")
@@ -198,8 +215,15 @@ def main(argv=None) -> int:
         if args.field == "goldilocks":
             from ..oracle.goldilocks_pipeline import check_proof_input_gl, export_proof_input_gl
 
-            pi = generate_gl(args.hash, glob, dset, args.index, args.entropy, device,
-                             args.verbose)
+            if device is None:
+                from ..oracle.goldilocks import int_to_digest
+                from ..oracle.goldilocks_pipeline import generate_proof_input_gl
+
+                pi = generate_proof_input_gl(args.hash, glob, dset, args.index,
+                                             int_to_digest(args.entropy))
+            else:
+                pi = generate_gl(args.hash, glob, dset, args.index, args.entropy, device,
+                                 args.verbose)
             export_proof_input_gl(args.output, pi)
             if args.verbose:
                 print(f"generated in {time.time() - t0:.3f}s")
@@ -210,7 +234,12 @@ def main(argv=None) -> int:
             from ..models.circuit import check_circuit_semantics
             from ..utils.json_export import export_proof_input
 
-            pi = generate(glob, dset, args.index, args.entropy, device, args.verbose)
+            if device is None:
+                from ..oracle.sampling import generate_proof_input
+
+                pi = generate_proof_input(glob, dset, args.index, args.entropy)
+            else:
+                pi = generate(glob, dset, args.index, args.entropy, device, args.verbose)
             export_proof_input(args.output, pi)
             if args.verbose:
                 print(f"generated in {time.time() - t0:.3f}s")

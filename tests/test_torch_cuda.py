@@ -210,6 +210,35 @@ def test_gl_subtree_matches_plain(cuda, hash_fun):
                                                  TGP.tree_layers(hash_fun, view, 12, 5)))
 
 
+# (width, trees side by side, subtree launches) of the BN254 subtree entry:
+# one tree of 2 and 2^7 nodes and 2^8, one CTA's; 2^9, just past it (a
+# launch of CTAs of 2^8 nodes, then one CTA); four trees of 2^7 (one launch
+# of two CTAs); 2^15, a 1 GB slot's frontier (128 CTAs, then one CTA); a
+# main-path chunk of 2^18 to its root (CTAs of 2^11 nodes, then one CTA)
+# and cut at 2^14 nodes (one launch of 4 levels)
+P2_TREE_CASES = [(2, 1, 1), (128, 1, 1), (256, 1, 1), (512, 1, 2), (512, 4, 1),
+                 (1 << 15, 1, 2), (1 << 18, 1, 2), (1 << 18, 1 << 14, 1)]
+
+
+def test_p2_subtree_matches_plain(cuda):
+    rng = np.random.default_rng(46)
+    for w, stop, launches in P2_TREE_CASES:
+        layer = _canonical(rng, (16, w)).to(cuda)
+        levels = (w // stop).bit_length() - 1
+        key_bits = 0b100001 if w == 1 << 18 else int(rng.integers(0, 1 << 20))
+        for mont in (True, False):
+            want = TP.tree_layers(layer, levels, key_bits, mont)
+            before = build.LAUNCHES["p2_tree"]
+            got = TC.tree_layers(layer, levels, key_bits, stop, mont)
+            assert build.LAUNCHES["p2_tree"] == before + launches, (w, stop)
+            assert len(got) == levels + 1 and got[-1].shape == (16, stop)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (w, stop, mont)
+    view = _canonical(rng, (16, 2 * 4096)).to(cuda)[:, 1::2]  # a strided layer
+    for mont in (True, False):
+        assert all(torch.equal(a, b) for a, b in zip(TC.tree_layers(view, 12, 5, mont=mont),
+                                                     TP.tree_layers(view, 12, 5, mont)))
+
+
 def test_device_verifier_on_cuda(cuda):
     import dataclasses
 

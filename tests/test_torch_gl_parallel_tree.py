@@ -1,8 +1,8 @@
 """The port's sharded Goldilocks tree builds (parallel/gl_tree.py) on CPU
 meshes, both hashes, against the JAX package's GL oracle,
 bit-exact: a 2 x 4 mesh with
-an odd slot count over both routes (encoded felts and byte rows), and a
-1 x 8 row."""
+an odd slot count over both routes (encoded felts and byte rows), a
+1 x 8 row, and single-block slots (Monolith) on 1 and 2 cell shards."""
 
 import pytest
 import torch
@@ -63,3 +63,23 @@ def test_gl_dataset_build_1x8_matches_oracle(hash_fun):
     roots = [calc_slot_tree_gl(hash_fun, c).root for c in JCFGS]
     assert [GH.digests(tops[-1][s])[0] for s in range(N_SLOTS)] == roots
     assert GH.digests(dlayers[-1])[0] == merkle_tree(roots, compress_fn(hash_fun)).root
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_gl_single_block_slots_get_the_oracles_root(n_shards):
+    # 16-byte cells, 64-byte blocks, 4 cells a slot: one block, whose root
+    # still gets the bottom-odd compression in the oracle's slot tree
+    cfgs = [SlotConfig(cell_size=16, block_size=64, n_cells=4, n_samples=1,
+                       data_src=DataSource("fake", seed=21 + k)) for k in range(2)]
+    jcfgs = [JS.SlotConfig(cell_size=16, block_size=64, n_cells=4, n_samples=1,
+                           data_src=JS.DataSource("fake", seed=21 + k)) for k in range(2)]
+    mesh = P.make_mesh(n_cells_shards=n_shards, devices=["cpu"] * n_shards)
+    trees = [calc_slot_tree_gl("monolith", c) for c in jcfgs]
+    roots = [t.root for t in trees]
+    felts = torch.stack([_felts(c) for c in cfgs])
+    for locs, tops, dlayers in (P.sharded_gl_dataset_build(felts, mesh, "monolith", 2),
+                                P.sharded_gl_dataset_build_rows(cfgs, mesh, "monolith", 2)):
+        for s, t in enumerate(trees):
+            assert GH.digests(tops[-2][s]) == [t.big_tree.layers[0][0]]
+            assert GH.digests(tops[-1][s]) == [roots[s]]
+        assert [GH.digests(lyr) for lyr in dlayers] == merkle_tree(roots, compress_fn("monolith")).layers

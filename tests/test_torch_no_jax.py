@@ -34,7 +34,8 @@ def test_port_modules_are_found():
 
 def test_port_imports_no_jax():
     mods = _port_modules() + ["chip_smoke", "tools_torch.chunk_sweep", "tools_torch.time_against",
-                              "tools_torch.gl_tree_widths", "tools_torch.tile_sweep",
+                              "tools_torch.gl_tree_widths", "tools_torch.p2_tree_widths",
+                              "tools_torch.tile_sweep",
                               "tools_torch.print_testvectors"]
     code = (
         "import importlib, sys\n"

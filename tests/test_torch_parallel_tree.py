@@ -4,7 +4,8 @@ the JAX package's oracle, bit-exact.
 Each shard of a mesh of `cpu` entries runs the plain versions, so these
 are the sharded code paths of the card at a small size: a 2 x 4 mesh with
 an odd slot count (3 slots, one padding slot), both routes (encoded felts,
-the JAX package's API, and byte rows), and a single slot over a 1 x 8 row.
+the JAX package's API, and byte rows), a single slot over a 1 x 8 row,
+and single-block slots on 1 and 2 cell shards.
 The JAX package's sharded_dataset_build is not called here: it compiles
 for over a minute on this CPU (its own tests hold it to the same oracle).
 """
@@ -82,6 +83,31 @@ def test_slot_tree_1x8_matches_oracle():
     local, tops = P.sharded_slot_tree_layers(_felts(CFGS[0]), mesh, BTD)
     assert local == [] and len(tops) == 4  # one cell a shard: the frontier is the cell hashes
     assert [TL.unpack(lyr) for lyr in tops] == _oracle_layers(JCFGS[0])
+
+
+# single-block slots: 16-byte cells, 64-byte blocks, 4 cells a slot
+SINGLE = [SlotConfig(cell_size=16, block_size=64, n_cells=4, n_samples=1,
+                     data_src=DataSource("fake", seed=21 + k)) for k in range(2)]
+JSINGLE = [JS.SlotConfig(cell_size=16, block_size=64, n_cells=4, n_samples=1,
+                         data_src=JS.DataSource("fake", seed=21 + k)) for k in range(2)]
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_single_block_slots_get_the_oracles_root(n_shards):
+    # the oracle's tree over a slot's one block root is a singleton bottom,
+    # which gets one bottom-odd compression: the slot root is not the block root
+    mesh = P.make_mesh(n_cells_shards=n_shards, devices=["cpu"] * n_shards)
+    felts = torch.stack([_felts(c) for c in SINGLE])
+    roots = [JS.calc_slot_tree(c).root for c in JSINGLE]
+    want_top = [[JS.calc_slot_tree(c).big_tree.layers[0][0], r] for c, r in zip(JSINGLE, roots)]
+    for locs, tops, dlayers in (P.sharded_dataset_build(felts, mesh, 2),
+                                P.sharded_dataset_build_rows(SINGLE, mesh, 2)):
+        for s, cfg in enumerate(JSINGLE):
+            assert [TL.unpack(lyr[s])[0] for lyr in tops[-2:]] == want_top[s]
+            assert _slot_layers(locs, tops, s) == _oracle_layers(cfg)
+        assert [TL.unpack(lyr) for lyr in dlayers] == merkle_tree(roots).layers
+    local, tops = P.sharded_slot_tree_layers(felts[0], mesh, 2)
+    assert TL.unpack(tops[-1]) == [roots[0]]
 
 
 def test_mesh_and_build_refuse_bad_shapes(mesh_2x4):

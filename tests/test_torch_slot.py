@@ -79,6 +79,17 @@ def test_slot_tree_two_groups_stop_below_the_joint_root(felts, jax_layers):
         assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("n_groups", [1, 2])
+def test_slot_tree_from_rows_matches_jax(felts, jax_layers, n_groups):
+    # the main path's entry: cell byte rows read in place, K1's subtree
+    # entry (its plain twin here) for every layer, canonical out
+    cells, _ = felts
+    layers = TH.slot_tree_from_rows(cells.T, BTD, n_groups=n_groups)
+    assert len(layers) == len(jax_layers) + 1 - n_groups
+    for got, want in zip(convert.layers_to_numpy(layers), jax_layers):
+        assert np.array_equal(got, want)
+
+
 def test_extract_paths_device_on_jax_layers(jax_layers):
     idxs = [0, 5, 17, 63]
     want = np.asarray(
