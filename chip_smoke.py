@@ -64,7 +64,17 @@ Phases:
      each building one 1 GB slot of phase 5's dataset: both must print its
      dataset root and write its proof input;
  12. the entry twins (entry.py): entry()'s root against the oracle, and
-     dryrun_multichip(8) on a mesh of eight shards on this card.
+     dryrun_multichip(8) on a mesh of eight shards on this card;
+ 13. the host C library (native/) as an independent judge of the card's
+     path: a cold build with $CC (the compiler's version, the build
+     seconds, the host CPU model and the library's threads); `cspc-torch
+     --backend=native` on phase 4's and phase 6's small datasets, whose
+     exports must equal those phases' byte for byte; and one whole 1 GB
+     slot of phase 5's dataset and of phase 7's (each hash), whose native
+     root must equal the device's slot root and whose 2^14 block roots must
+     equal the device's, block for block.  No kernel may launch while the
+     native path runs; the native walls are printed beside the device's
+     build of the same slot.
 
 Each main path (phase 5, and phase 7 once per hash) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
@@ -75,8 +85,10 @@ and 9 reset and read the counts around their own runs, against the
 kernels each names.
 
 Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
-Any failed check raises: the exit code is then non-zero and there is no
-result line.  Without a CUDA device it exits non-zero at once.
+Phase 13 sets the launch counts to 0 before its native runs and reads them
+after: they must all still be 0.  Any failed check raises: the exit code
+is then non-zero and there is no result line.  Without a CUDA device it
+exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -116,6 +128,7 @@ from codex_storage_proofs_circuits_tpu_torch.oracle.slot import (
 from codex_storage_proofs_circuits_tpu_torch.utils.json_export import load_proof_input
 from codex_storage_proofs_circuits_tpu_torch.kernels import build
 from codex_storage_proofs_circuits_tpu_torch.kernels.timing import device_ms, events_ms
+from codex_storage_proofs_circuits_tpu_torch.models import gl_hashing as GH
 from codex_storage_proofs_circuits_tpu_torch.models import hashing as H
 from codex_storage_proofs_circuits_tpu_torch.models import streaming as S
 from codex_storage_proofs_circuits_tpu_torch.ops import encode as E
@@ -140,6 +153,8 @@ CHUNK = S.DEFAULT_CHUNK_CELLS  # cells per streaming chunk on the main path
 CELL = 2048
 SEED = 12345
 HASHES = ("poseidon2", "monolith")
+SMALL_BN254 = ["--field=bn254", "--nslots=5", "--ncells=256"]  # phases 4 and 13
+SMALL_GL = ["--nslots=5", "--ncells=128"]  # phases 6 and 13, with --hash
 _SRC = "codex_storage_proofs_circuits_tpu_torch/csrc/"
 _TPU = "codex_storage_proofs_circuits_tpu/ops/"
 # launch counter -> (name, source, TPU kernel replaced)
@@ -500,8 +515,7 @@ def sass_mix() -> None:
 
 def phase_small(tmp: str) -> None:
     out = os.path.join(tmp, "small.json")
-    argv = ["--field=bn254", "--device=cuda", "--nslots=5", "--ncells=256",
-            "--check", f"--output={out}"]
+    argv = [*SMALL_BN254, "--device=cuda", "--check", f"--output={out}"]
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
         raise AssertionError("cspc-torch failed on the small dataset")
@@ -612,8 +626,7 @@ def phase_full(tmp: str) -> tuple[dict, dict]:
 def phase_small_gl(tmp: str) -> None:
     for hash_fun in HASHES:
         out = os.path.join(tmp, f"small_gl_{hash_fun}.json")
-        argv = [f"--hash={hash_fun}", "--device=cuda", "--nslots=5", "--ncells=128",
-                "--check", f"--output={out}"]
+        argv = [f"--hash={hash_fun}", "--device=cuda", *SMALL_GL, "--check", f"--output={out}"]
         t0 = time.perf_counter()
         if cli.main(argv) != 0:
             raise AssertionError(f"cspc-torch failed on the small {hash_fun} dataset")
@@ -960,6 +973,113 @@ def phase_entry() -> None:
     log(f"  dryrun_multichip(8): {time.perf_counter() - t0:.2f} s")
 
 
+def host_cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo gives it: the model name, and the
+    vendor, family, model and clock (a virtual machine may hide the name)."""
+    fields: dict[str, str] = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break  # the first processor's block
+            key, _, val = line.partition(":")
+            fields[key.strip()] = val.strip()
+    return (f"{fields.get('model name', 'unknown')} ({fields.get('vendor_id', '?')} family"
+            f" {fields.get('cpu family', '?')} model {fields.get('model', '?')},"
+            f" {fields.get('cpu MHz', '?')} MHz)")
+
+
+def phase_native(tmp: str, runs: dict, smi: str) -> None:
+    """The host C library against the card's path: (a) a cold build, (b) the
+    small exports of phases 4 and 6, (c) one whole 1 GB slot of phase 5's
+    and of phase 7's datasets: the native root against the device's slot
+    root, the native block roots against the device's; (d) no kernel
+    launched while the native path ran; (e) the walls."""
+    from codex_storage_proofs_circuits_tpu_torch import native as NAT
+    from codex_storage_proofs_circuits_tpu_torch.native import build as NB
+
+    cc = os.environ.get("CC", "cc")
+    version = subprocess.run([cc, "--version"], capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    err = NB.build_into(os.path.join(tmp, "native_cold"))
+    build_s = time.perf_counter() - t0
+    if err is not None or not NAT.available():
+        raise AssertionError(f"native: the host C library did not build: {err or NAT.build_error()}")
+    cpu, threads = host_cpu_model(), NAT._nthreads()
+    log(f"  {version}; cold build {build_s:.2f} s; library {NB.build_dir()};"
+        f" host CPU {cpu}, os.cpu_count() {os.cpu_count()}, {threads} threads")
+
+    # the device's layers of each 1 GB slot, built before the counts are
+    # reset: the root and the 2^14 block roots (depth btd), and the wall of
+    # this warm build
+    device = {}
+    for field in ("bn254", *HASHES):
+        glob, dset = cli.configs_from_args(cli.build_parser().parse_args(runs[field]["argv"]))
+        pi = runs[field]["pi"] if field == "bn254" else load_proof_input_gl(runs[field]["out"])
+        cfg = slot_cfg_from_dataset_cfg(glob, dset, pi.slot_index)
+        btd = glob.block_tree_depth
+        t0 = time.perf_counter()
+        if field == "bn254":
+            layers = S.streaming_slot_layers(cfg)
+            blocks, root = L.unpack(layers[btd]), L.unpack(layers[-1])[0]
+        else:
+            layers = S.streaming_slot_layers_gl(cfg, field)
+            blocks, root = GH.digests(layers[btd]), GH.digests(layers[-1])[0]
+        wall = time.perf_counter() - t0
+        if root != pi.slot_root or len(blocks) != dset.n_cells >> btd:
+            raise AssertionError(f"native: {field}: the device's layers differ from its export")
+        device[field] = {"cfg": cfg, "btd": btd, "blocks": blocks, "root": root, "wall": wall}
+        del layers
+
+    reset_launches()
+    for label, flags, ref in (
+        ("bn254", SMALL_BN254, "small.json"),
+        *((h, [f"--hash={h}", *SMALL_GL], f"small_gl_{h}.json") for h in HASHES),
+    ):
+        out = os.path.join(tmp, f"small_native_{label}.json")
+        t0 = time.perf_counter()
+        if cli.main([*flags, "--backend=native", "--check", f"--output={out}"]) != 0:
+            raise AssertionError(f"native: cspc-torch --backend=native failed on {label}")
+        with open(out, "rb") as a, open(os.path.join(tmp, ref), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"native: {label}: the small export differs from {ref}")
+        log(f"  {label}: cspc-torch --backend=native ({time.perf_counter() - t0:.2f} s) equals"
+            f" the export of phase {4 if label == 'bn254' else 6} byte for byte")
+
+    walls = {}
+    for field, dev in device.items():
+        cfg, btd = dev["cfg"], dev["btd"]
+        t0 = time.perf_counter()
+        if field == "bn254":
+            data = NAT.fake_cells(cfg.cell_size, cfg.data_src.seed, 0, cfg.n_cells)
+            _, big = NAT.slot_tree_from_bytes(data, cfg.cell_size, cfg.cells_per_block)
+            del data
+            blocks, root = big[0], big[-1][0]
+        else:
+            layers = NAT.gl_slot_tree_layers(field, cfg.n_cells, cfg.cell_size,
+                                             cfg.data_src.seed, btd)
+            blocks, root = layers[btd], layers[-1][0]
+        walls[field] = time.perf_counter() - t0
+        bad = [b for b, (x, y) in enumerate(zip(blocks, dev["blocks"])) if x != y]
+        if bad or len(blocks) != len(dev["blocks"]):
+            raise AssertionError(f"native: {field}: {len(bad)} block roots differ from the"
+                                 f" device's, first block {bad[:1]}")
+        if root != dev["root"]:
+            raise AssertionError(f"native: {field}: the native slot root differs from the device's")
+        log(f"  {field}: {cfg.n_cells * cfg.cell_size >> 20} MiB slot ({cfg.n_cells} cells):"
+            f" native root and {len(blocks)} block roots equal the device's; native"
+            f" {walls[field]:.2f} s, device (warm build of the same slot's layers)"
+            f" {dev['wall']:.4f} s, phase {5 if field == 'bn254' else 7} CLI (2 slots)"
+            f" {runs[field]['wall']:.2f} s")
+    if any(build.LAUNCHES.values()):
+        raise AssertionError(f"native: kernels launched on the native path: {build.LAUNCHES}")
+    log("  no kernel launched while the native path ran")
+    log("  native walls: " + json.dumps({
+        "host_cpu": cpu, "threads": threads, "card": smi, "cc": version, "build_s": build_s,
+        "native_s": walls, "device_warm_s": {f: d["wall"] for f, d in device.items()},
+        "device_cli_2_slots_s": {f: runs[f]["wall"] for f in device}}))
+
+
 def main() -> int:
     global SM_CLOCK_HZ
     if not torch.cuda.is_available():
@@ -1011,8 +1131,10 @@ def main() -> int:
         phase_checkpoint(tmp, runs["bn254"])
         log("[11] two processes on the card (gloo), one 1 GB slot each")
         phase_two_processes(tmp, runs["bn254"])
-    log("[12] entry twins")
-    phase_entry()
+        log("[12] entry twins")
+        phase_entry()
+        log("[13] the host C library (native/) against the card: small exports, 1 GB slot roots")
+        phase_native(tmp, runs, smi)
 
     for key in ("sponge2:planes", "gl_sponge8:planes", "mono_sponge8:planes"):
         r = results[key]

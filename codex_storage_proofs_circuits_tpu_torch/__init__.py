@@ -22,13 +22,16 @@ Layer map:
             fake-data PRNG (plain + CUDA kernel)
   kernels/  nvcc build + ctypes loader for csrc/*.cu
   csrc/     the CUDA C++ kernels (sm_90a)
+  native/   the threaded host C library (`--backend=native`, and the
+            independent judge of the card's slot roots), built with $CC
   models/   slot trees, streaming slot builds, proof inputs, witness
   utils/    the `cspc-torch` command line, JSON export, circom writer
   convert   state carried across from the JAX package (tables, layers)
 
-fields/, oracle/, models/data.py, models/witness.py, utils/json_export.py
-and utils/circom.py are the port's own copies of the JAX package's jax-free
-modules of the same names.  Nothing here imports jax or the JAX package.
+fields/, oracle/, models/data.py, models/witness.py, utils/json_export.py,
+utils/circom.py and native/ are the port's own copies of the JAX package's
+jax-free modules of the same names (native/ generates its constants
+headers from the port's fields/).  Nothing here imports jax or the JAX package.
 """
 
 __version__ = "0.1.0"

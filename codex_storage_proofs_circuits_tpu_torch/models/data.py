@@ -22,10 +22,17 @@ def gen_fake_cells(cell_size: int, seed: int, cell_indices) -> np.ndarray:
     """(B,) cell indices -> (B, cell_size) uint8 fake cell data.
 
     Vectorized across cells; sequential (as specified) along the byte axis.
-    (The port has no native C library, so there is no native route here.)
+    Contiguous index ranges route through the native C PRNG when built
+    (native/cspc_native.c cspc_fake_cells — ~6x the numpy path; equality
+    covered by tests/test_native.py).
     """
     idx = np.asarray(cell_indices, dtype=np.uint64)
     b = idx.shape[0]
+    if b > 1 and idx[0] + b - 1 == idx[-1] and np.all(np.diff(idx) == 1):
+        from .. import native
+
+        if native.available():
+            return native.fake_cells(cell_size, seed, int(idx[0]), b)
     seed1 = _U64((seed + 0xDEADCAFE) & 0xFFFFFFFFFFFFFFFF)
     seed2 = (idx + _U64(0x98765432 % (1 << 64)))  # wraps in uint64
     out = np.empty((b, cell_size), dtype=np.uint8)

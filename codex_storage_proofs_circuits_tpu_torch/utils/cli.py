@@ -11,8 +11,9 @@ drive either CLI unchanged:
   - oracle: the port's pure-Python oracle on the host (no device);
   - auto (the default) and tpu: the port's device path on `--device`
     (cuda by default; tpu is the JAX CLI's name for its accelerator path);
-  - native: the JAX package's host C library, which the port does not
-    have by design; exits non-zero.
+  - native: the port's threaded host C library (native/, built at first
+    use with $CC into build/native/; CSPC_NATIVE_THREADS sets its
+    threads), no device; exits non-zero when the library does not build.
 
 Example:
     cspc-torch -v --nslots=5 --ncells=256 --nsamples=5 --hash=monolith \\
@@ -91,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "oracle", "tpu", "native"],
                    help="compute path: oracle = the pure-Python oracle on the host; auto and "
                         "tpu = the device path on --device (tpu is cspc-tpu's name for its "
-                        "accelerator path); native is not ported and exits with an error")
+                        "accelerator path); native = the threaded host C library (native/)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the device path (cuda, cuda:N or cpu; default cuda)")
     p.add_argument("--check", action="store_true",
@@ -178,9 +179,12 @@ def main(argv=None) -> int:
             f"slot index {args.index} out of range (dataset has {args.nslots} slots)"
         )
     if args.backend == "native":
-        raise SystemExit("--backend=native: the host C library (native/ of the JAX package) is"
-                         " not ported by design; use --backend=oracle, auto or tpu")
-    device = None if args.backend == "oracle" else _device(args.device)
+        from .. import native
+
+        if not native.available():
+            raise SystemExit(f"--backend=native: the host C library did not build:"
+                             f" {native.build_error()}")
+    device = None if args.backend in ("oracle", "native") else _device(args.device)
     glob, dset = configs_from_args(args)
 
     if args.verbose:
@@ -217,10 +221,12 @@ def main(argv=None) -> int:
 
             if device is None:
                 from ..oracle.goldilocks import int_to_digest
-                from ..oracle.goldilocks_pipeline import generate_proof_input_gl
 
-                pi = generate_proof_input_gl(args.hash, glob, dset, args.index,
-                                             int_to_digest(args.entropy))
+                if args.backend == "native":
+                    from ..native import generate_proof_input_gl_native as gen
+                else:
+                    from ..oracle.goldilocks_pipeline import generate_proof_input_gl as gen
+                pi = gen(args.hash, glob, dset, args.index, int_to_digest(args.entropy))
             else:
                 pi = generate_gl(args.hash, glob, dset, args.index, args.entropy, device,
                                  args.verbose)
@@ -235,9 +241,11 @@ def main(argv=None) -> int:
             from ..utils.json_export import export_proof_input
 
             if device is None:
-                from ..oracle.sampling import generate_proof_input
-
-                pi = generate_proof_input(glob, dset, args.index, args.entropy)
+                if args.backend == "native":
+                    from ..native import generate_proof_input_native as gen
+                else:
+                    from ..oracle.sampling import generate_proof_input as gen
+                pi = gen(glob, dset, args.index, args.entropy)
             else:
                 pi = generate(glob, dset, args.index, args.entropy, device, args.verbose)
             export_proof_input(args.output, pi)

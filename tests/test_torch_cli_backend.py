@@ -1,9 +1,9 @@
 """`cspc-torch --backend` (utils/cli.py): the JAX CLI's choices, so that
 workflow/ drives either CLI unchanged.  On small datasets of both fields:
 `--backend=oracle` writes the same bytes as `cspc-tpu --backend=oracle`,
-`--backend=tpu --device=cpu` (the device path) the same again,
-`--backend=native` exits non-zero, and the flag list of
-workflow/cli_args.sh parses."""
+`--backend=tpu --device=cpu` (the device path) the same again, and the
+flag list of workflow/cli_args.sh parses.  `--backend=native` against
+`cspc-tpu --backend=native`: tests/test_torch_native.py."""
 
 import os
 import subprocess
@@ -31,13 +31,6 @@ def test_oracle_and_device_backends_write_cspc_tpu_bytes(dataset, tmp_path):
         got = tmp_path / "port.json"
         assert cli.main(flags + backend + [f"--output={got}", "--check"]) == 0
         assert got.read_bytes() == want.read_bytes(), backend
-
-
-def test_native_backend_is_refused(tmp_path):
-    with pytest.raises(SystemExit) as e:
-        cli.main(FLAGS["bn254"] + ["--backend=native", f"--output={tmp_path / 'x.json'}"])
-    assert e.value.code not in (0, None) and "not ported" in str(e.value.code)
-    assert not (tmp_path / "x.json").exists()
 
 
 def test_workflow_flag_list_parses():

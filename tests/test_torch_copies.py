@@ -1,10 +1,13 @@
 """The port's own copies of the JAX package's jax-free modules (fields/,
 oracle/, models/data.py, models/witness.py, utils/json_export.py,
-utils/circom.py) against their originals: constants table for table, the
-oracle's permutations, sponges and Merkle roots on seeded inputs, and the
-JSON and circom outputs byte for byte."""
+utils/circom.py, native/) against their originals: constants table for
+table, the oracle's permutations, sponges and Merkle roots on seeded
+inputs, the JSON and circom outputs byte for byte, models/data.py and the
+C sources of native/ byte for byte, and the C constants headers the port
+generates from its fields/ against the JAX package's checked-in ones."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import codex_storage_proofs_circuits_tpu_torch.fields.bn254 as TB
 import codex_storage_proofs_circuits_tpu_torch.fields.goldilocks as TG
 import codex_storage_proofs_circuits_tpu_torch.models.data as TD
 import codex_storage_proofs_circuits_tpu_torch.models.witness as TW
+import codex_storage_proofs_circuits_tpu_torch.native.build as TNB
 import codex_storage_proofs_circuits_tpu_torch.oracle.dataset as TDS
 import codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks as TOG
 import codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline as TGP
@@ -36,6 +40,7 @@ import codex_storage_proofs_circuits_tpu_torch.oracle.slot as TSL
 import codex_storage_proofs_circuits_tpu_torch.utils.circom as TC
 import codex_storage_proofs_circuits_tpu_torch.utils.json_export as TJ
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLOB = dict(max_depth=16, max_log2_n_slots=4, cell_size=64, block_size=256)
 DSET = dict(n_slots=3, n_cells=16, n_samples=3)
 
@@ -104,3 +109,25 @@ def test_goldilocks_exports_equal(hash_fun, tmp_path):
         return out.read_bytes()
 
     assert run(TDS, TSL, TGP, "port") == run(JDS, JSL, JGP, "jax")
+
+
+@pytest.mark.parametrize("path", ["native/cspc_native.c", "native/cspc_gl.c", "models/data.py"])
+def test_copied_sources_equal_byte_for_byte(path):
+    def read(pkg):
+        with open(os.path.join(REPO, pkg, path), "rb") as f:
+            return f.read()
+
+    assert read("codex_storage_proofs_circuits_tpu_torch") == read(
+        "codex_storage_proofs_circuits_tpu")
+
+
+@pytest.mark.parametrize("name", sorted(TNB.HEADERS))
+def test_generated_c_headers_equal_the_checked_in_ones(name):
+    """Under the default constants, the header the port generates equals the
+    JAX package's native/<name> after its first line (which names its
+    generator)."""
+    with open(os.path.join(REPO, "codex_storage_proofs_circuits_tpu", "native", name)) as f:
+        want = f.read()
+    got = TNB.HEADERS[name]()
+    assert got.startswith("/* generated by codex_storage_proofs_circuits_tpu_torch/native/build.py")
+    assert got.split("\n", 1)[1] == want.split("\n", 1)[1]

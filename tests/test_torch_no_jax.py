@@ -1,8 +1,9 @@
 """The port imports neither jax nor the JAX package: every module of the port
-package, chip_smoke.py and the scripts of tools_torch/ load in a fresh
-interpreter with jax and every module of codex_storage_proofs_circuits_tpu
-absent from sys.modules (the machine with the GPU has no jax, and the port
-keeps its own copies of the JAX package's jax-free modules)."""
+package, chip_smoke.py and the scripts of tools_torch/ load, and the host C
+library of native/ builds and loads, in a fresh interpreter with jax and
+every module of codex_storage_proofs_circuits_tpu absent from sys.modules
+(the machine with the GPU has no jax, and the port keeps its own copies of
+the JAX package's jax-free modules)."""
 
 import os
 import pkgutil
@@ -28,7 +29,8 @@ def test_port_modules_are_found():
                  "models.gl_hashing", "models.gl_proof_input", "fields.goldilocks",
                  "fields.gl_tables", "oracle.goldilocks_pipeline", "models.circuit",
                  "parallel", "parallel.mesh", "parallel.tree", "parallel.gl_tree",
-                 "parallel.proof_input", "parallel.distributed", "entry"):
+                 "parallel.proof_input", "parallel.distributed", "entry", "native",
+                 "native.build"):
         assert f"{port.__name__}.{name}" in mods
 
 
@@ -41,6 +43,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "native = importlib.import_module('codex_storage_proofs_circuits_tpu_torch.native')\n"
+        "assert native.available(), native.build_error()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "jax_pkg = 'codex_storage_proofs_circuits_tpu'\n"
