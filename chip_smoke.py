@@ -74,7 +74,15 @@ Phases:
      root must equal the device's slot root and whose 2^14 block roots must
      equal the device's, block for block.  No kernel may launch while the
      native path runs; the native walls are printed beside the device's
-     build of the same slot.
+     build of the same slot;
+ 14. the port's measurement tools: bench_torch.py in a process of its own
+     at full size (it must exit 0 and print one JSON line; its three 1 GB
+     roots must equal this script's own streaming_slot_root[_gl] of the
+     same slot; no compress chain of it may beat the device time of the
+     same call, kernels/timing.device_ms, by more than 5 %), then
+     tools_torch/profile_stages.py for BN254 and each GL hash, and
+     tools_torch/scaling_bench.py on four shards of this card for both
+     fields (the roots of its 1, 2 and 4-shard meshes must agree).
 
 Each main path (phase 5, and phase 7 once per hash) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
@@ -148,6 +156,10 @@ from codex_storage_proofs_circuits_tpu_torch.models.circuit import (
     verify_proof_input_device,
 )
 from codex_storage_proofs_circuits_tpu_torch.oracle.slot import DataSource, SlotConfig, calc_slot_tree
+
+import bench_torch as BT
+from tools_torch import profile_stages as PS
+from tools_torch import scaling_bench as SB
 
 CHUNK = S.DEFAULT_CHUNK_CELLS  # cells per streaming chunk on the main path
 CELL = 2048
@@ -1080,6 +1092,90 @@ def phase_native(tmp: str, runs: dict, smi: str) -> None:
         "device_cli_2_slots_s": {f: runs[f]["wall"] for f in device}}))
 
 
+def phase_tools(tmp: str) -> None:
+    """bench_torch.py in its own process (full size), its roots against this
+    process's builds of the same slot and its compress rates against the
+    device time of the same calls; profile_stages for each path; the sharded
+    build on four shards of the card by scaling_bench."""
+    out = os.path.join(tmp, "bench_torch_metrics.json")
+    torch.cuda.empty_cache()
+    start = t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "bench_torch.py", "--out", out],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        log(f"  bench_torch.py stderr: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {r.returncode}")
+    lines = r.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines, not one JSON line")
+    line = json.loads(lines[0])
+    log(f"  bench_torch.py: exit 0 in {wall:.2f} s; its line: {lines[0]}")
+    with open(out) as f:
+        m = json.load(f)
+
+    cfg, _ = BT.slot_config(True, False)
+    own = {"bn254": str(S.streaming_slot_root(cfg))}
+    for hash_fun in HASHES:
+        own[hash_fun] = [str(v) for v in S.streaming_slot_root_gl(cfg, hash_fun)]
+    got = {"bn254": m["slot_root"]["slot_root"], "poseidon2": m["gl_slot_root"]["gl_slot_root"],
+           "monolith": m["monolith_slot_root"]["monolith_slot_root"]}
+    if got != own:
+        raise AssertionError(f"bench_torch.py's 1 GB roots {got} differ from this script's {own}")
+    log(f"  its three 1 GB roots ({cfg.n_cells} cells of {cfg.cell_size} bytes) equal this"
+        " script's streaming builds of the same slot")
+    for key, tag in (("slot_root", ""), ("gl_slot_root", "gl_"),
+                     ("monolith_slot_root", "monolith_")):
+        res = m[key]
+        log(f"  {key}: cold {res[tag + 'slot_root_cold_s']:.4f} s, warm"
+            f" {res[tag + 'slot_root_wall_s']:.4f} s, stages {json.dumps(res['stages'])}")
+
+    batch, gl_batch = BT.compress_batch(True, False), BT.gl_compress_batch(True)
+    x, g = BT.bn254_states(batch, "cuda"), BT.gl_states(gl_batch, "cuda")
+    gl = m["gl_compress"]
+    rates = (  # name, batch, the bench's rate and its window statistics, the call, reps
+        ("bn254", batch, m["compress"]["compress_per_s"], m["compress"],
+         lambda: P2C.permutation(x), 20),
+        ("poseidon2", gl_batch, gl["gl_compress_per_s"], gl,
+         lambda: GC.permutation(g, "poseidon2"), 50),
+        ("monolith", gl_batch, gl["monolith_compress_per_s"], gl["monolith_detail"],
+         lambda: GC.permutation(g, "monolith"), 100),
+    )
+    for name, b, rate, detail, fn, reps in rates:
+        chain_ms = b / rate * 1e3
+        dev_ms = device_ms(fn, reps)
+        log(f"  {name} compress: batch {b}, chain {chain_ms:.5f} ms a call ({rate:.6g}/s; min"
+            f" {detail['per_iter_min_s'] * 1e3:.5f} ms, spread {detail['spread']:.4f},"
+            f" {detail['iters']} calls a window), device_ms {dev_ms:.5f} ms"
+            f" ({b / dev_ms * 1e3:.6g}/s); chain / device {chain_ms / dev_ms:.4f}")
+        if chain_ms < 0.95 * dev_ms:
+            raise AssertionError(f"{name}: the bench's chain ({chain_ms:.5f} ms) beats the"
+                                 f" kernel's device time ({dev_ms:.5f} ms) by more than 5 %")
+    extra = line["extra"]
+    log(f"  consistency: {extra['consistency']}; pipeline_efficiency bn254"
+        f" {extra['bn254_pipeline_efficiency']:.4f}, gl {extra['gl_pipeline_efficiency']:.4f},"
+        f" monolith {extra['monolith_pipeline_efficiency']:.4f}")
+
+    for argv in ([], ["--gl"], ["--gl", "--hash=monolith"]):
+        t0 = time.perf_counter()
+        PS.main(argv)
+        log(f"  profile_stages {' '.join(argv) or '(bn254)'}: {time.perf_counter() - t0:.2f} s")
+
+    scaling = os.path.join(tmp, "scaling_metrics_torch.json")
+    t0 = time.perf_counter()
+    SB.main(["--device=cuda", "--n-devices=4", "--out", scaling])
+    with open(scaling) as f:
+        summary = json.load(f)
+    for field, rows in summary["results"].items():
+        if [row["devices"] for row in rows] != [1, 2, 4] or len({row["root"] for row in rows}) != 1:
+            raise AssertionError(f"scaling_bench: {field}: rows {rows}")
+    log(f"  scaling_bench: {time.perf_counter() - t0:.2f} s; the 1, 2 and 4-shard meshes give one"
+        f" dataset root a field; caveat: {summary['caveat']}")
+    log(f"  phase 14: {time.perf_counter() - start:.2f} s")
+
+
 def main() -> int:
     global SM_CLOCK_HZ
     if not torch.cuda.is_available():
@@ -1135,6 +1231,8 @@ def main() -> int:
         phase_entry()
         log("[13] the host C library (native/) against the card: small exports, 1 GB slot roots")
         phase_native(tmp, runs, smi)
+        log("[14] the port's measurement tools: bench_torch.py, profile_stages, scaling_bench")
+        phase_tools(tmp)
 
     for key in ("sponge2:planes", "gl_sponge8:planes", "mono_sponge8:planes"):
         r = results[key]

@@ -146,7 +146,11 @@ def from_mont_layers(layers: list[torch.Tensor]) -> list[torch.Tensor]:
     return list(torch.split(canon, [lyr.shape[1] for lyr in layers], dim=1))
 
 
-def _slot_tree(hashes: torch.Tensor, block_tree_depth: int, n_groups: int) -> list[torch.Tensor]:
+def slot_tree_from_hashes(
+    hashes: torch.Tensor, block_tree_depth: int, n_groups: int = 1
+) -> list[torch.Tensor]:
+    """Montgomery cell hashes (NL, B) -> the layers of slot_tree_from_rows
+    (the tree part of it: one subtree-kernel call)."""
     _check_width(hashes.shape[1], n_groups)
     levels = (hashes.shape[1] // n_groups).bit_length() - 1
     return tree_layers(hashes, levels, key_bits((0, block_tree_depth), levels), n_groups)
@@ -162,11 +166,11 @@ def slot_tree_from_rows(
     block_tree_depth holds the block roots.  `n_groups` independent
     same-shaped slots may lie side by side on the batch axis.
     """
-    return _slot_tree(hash_cells_rows(rows), block_tree_depth, n_groups)
+    return slot_tree_from_hashes(hash_cells_rows(rows), block_tree_depth, n_groups)
 
 
 def slot_tree_from_felts(
     cells_felts: torch.Tensor, block_tree_depth: int, n_groups: int = 1
 ) -> list[torch.Tensor]:
     """Encoded cells (nfelts, NL, B) -> the layers of slot_tree_from_rows."""
-    return _slot_tree(hash_cells_mont(cells_felts), block_tree_depth, n_groups)
+    return slot_tree_from_hashes(hash_cells_mont(cells_felts), block_tree_depth, n_groups)

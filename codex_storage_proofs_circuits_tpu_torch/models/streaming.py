@@ -242,11 +242,17 @@ def bn254_tops(roots: torch.Tensor, btd: int, depth: int) -> list[torch.Tensor]:
     return H.tree_layers(roots, levels, H.key_bits((0, btd), levels, depth), mont=False)[1:]
 
 
+def bn254_chunk_tree(hashes: torch.Tensor, btd: int) -> list[torch.Tensor]:
+    """A BN254 chunk's layers from its (NL, B) Montgomery cell hashes, down
+    to CHUNK_STOP_WIDTH nodes (its root when the chunk is no wider)."""
+    trees = CHUNK_STOP_WIDTH if hashes.shape[1] > CHUNK_STOP_WIDTH else 1
+    return H.slot_tree_from_hashes(hashes, btd, n_groups=trees)
+
+
 def bn254_rows_tree(rows: torch.Tensor, btd: int) -> list[torch.Tensor]:
-    """A BN254 chunk's layers from its byte rows, down to CHUNK_STOP_WIDTH
-    nodes (its root when the chunk is no wider)."""
-    trees = CHUNK_STOP_WIDTH if rows.shape[1] > CHUNK_STOP_WIDTH else 1
-    return H.slot_tree_from_rows(rows, btd, n_groups=trees)
+    """A BN254 chunk's layers from its byte rows: the cell hashes (K2), then
+    bn254_chunk_tree."""
+    return bn254_chunk_tree(H.hash_cells_rows(rows), btd)
 
 
 def gl_tops(hash_fun: str):

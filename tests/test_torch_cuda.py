@@ -349,3 +349,31 @@ def test_tree_reduce_general_many_matches_plain(cuda):
     got = TH.tree_reduce_general_many([x.to(cuda) for x in leaves])
     for g, w in zip(got, want):
         assert len(g) == len(w) and all(torch.equal(a.cpu(), b) for a, b in zip(g, w))
+
+
+def test_bench_torch_small_on_cuda(cuda, tmp_path, capsys):
+    # bench_torch.py --small on the card: one JSON line, the small slot roots
+    # equal the oracle's, and every rate and root ran on the kernels
+    import json
+
+    import bench_torch
+    from codex_storage_proofs_circuits_tpu_torch.oracle.goldilocks_pipeline import (
+        calc_slot_tree_gl,
+    )
+    from codex_storage_proofs_circuits_tpu_torch.oracle.slot import calc_slot_tree
+
+    for k in build.LAUNCHES:
+        build.LAUNCHES[k] = 0
+    out = tmp_path / "metrics.json"
+    assert bench_torch.main(["--small", "--out", str(out)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and "[cuda]" in json.loads(lines[0])["metric"]
+    m = json.loads(out.read_text())
+    assert m["compress"]["batch"] == 1 << 17 and m["gl_compress"]["batch"] == 1 << 16
+    cfg, _ = bench_torch.slot_config(True, True)
+    assert m["slot_root"]["slot_root"] == str(calc_slot_tree(cfg).root)
+    for key, hash_fun in (("gl_slot_root", "poseidon2"), ("monolith_slot_root", "monolith")):
+        assert m[key][key] == [str(v) for v in calc_slot_tree_gl(hash_fun, cfg).root]
+    for k in ("perm", "p2_tree", "sponge2", "prng", "gl_perm", "mono_perm", "gl_sponge8",
+              "mono_sponge8"):
+        assert build.LAUNCHES[k] > 0, k

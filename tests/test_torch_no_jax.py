@@ -1,9 +1,9 @@
 """The port imports neither jax nor the JAX package: every module of the port
-package, chip_smoke.py and the scripts of tools_torch/ load, and the host C
-library of native/ builds and loads, in a fresh interpreter with jax and
-every module of codex_storage_proofs_circuits_tpu absent from sys.modules
-(the machine with the GPU has no jax, and the port keeps its own copies of
-the JAX package's jax-free modules)."""
+package, chip_smoke.py, bench_torch.py and the scripts of tools_torch/ load,
+and the host C library of native/ builds and loads, in a fresh interpreter
+with jax and every module of codex_storage_proofs_circuits_tpu absent from
+sys.modules (the machine with the GPU has no jax, and the port keeps its
+own copies of the JAX package's jax-free modules)."""
 
 import os
 import pkgutil
@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
     mods = _port_modules() + ["chip_smoke", "tools_torch.chunk_sweep", "tools_torch.time_against",
                               "tools_torch.gl_tree_widths", "tools_torch.p2_tree_widths",
                               "tools_torch.tile_sweep",
-                              "tools_torch.print_testvectors"]
+                              "tools_torch.print_testvectors", "bench_torch",
+                              "tools_torch.profile_stages", "tools_torch.scaling_bench",
+                              "tools_torch.gen_vectors", "tools_torch.gen_gl_vectors"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
