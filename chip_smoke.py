@@ -82,9 +82,22 @@ Phases:
      same call, kernels/timing.device_ms, by more than 5 %), then
      tools_torch/profile_stages.py for BN254 and each GL hash, and
      tools_torch/scaling_bench.py on four shards of this card for both
-     fields (the roots of its 1, 2 and 4-shard meshes must agree).
+     fields (the roots of its 1, 2 and 4-shard meshes must agree);
+ 15. the microbenchmark kernels M1-M6 (csrc/microbench.cu), the twins of
+     the TPU's tools/microbench.py and tools/microbench2.py: both port
+     tools (tools_torch/microbench*.py) run every variant at their full
+     shapes (their launch counts are that path's), then each variant is
+     held against its plain version on the card (M1-M5 bitwise, M6 within
+     a relative 2.5e-4); each kernel's rate of the instructions that bound
+     it, an SM a clock, is set beside its peak (IMAD and integer logic 64,
+     conversions 16, bf16 tensor cores 989 TFLOP/s), and a kernel above
+     105 % of its peak fails the phase (the compiler removed work), as
+     does a build whose SASS lacks the IMAD of M1, M3 and M4, the I2F and
+     F2I of M5 or the HMMA of M6 (phase 2 counts them).  The u32 multiply
+     rate of M1 and M4 (ilp8) stands beside IMAD_PER_CLOCK, which bound()
+     assumes.
 
-Each main path (phase 5, and phase 7 once per hash) sets the launch counts
+Each main path (phase 5, phase 7 once per hash, and phase 15's tools) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
 that path must have launched, and no other kernel, nor the limb-plane
 entries of K2 and K6 (counted apart from their byte-row entries); a GL
@@ -108,6 +121,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -145,6 +159,8 @@ from codex_storage_proofs_circuits_tpu_torch.ops import gl_encode as GE
 from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_cuda as GC
 from codex_storage_proofs_circuits_tpu_torch.ops import goldilocks_plain as GP
 from codex_storage_proofs_circuits_tpu_torch.ops import limbs as L
+from codex_storage_proofs_circuits_tpu_torch.ops import microbench_cuda as MBC
+from codex_storage_proofs_circuits_tpu_torch.ops import microbench_plain as MBP
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_cuda as P2C
 from codex_storage_proofs_circuits_tpu_torch.ops import poseidon2_plain as P2
 from codex_storage_proofs_circuits_tpu_torch.utils import cli
@@ -158,6 +174,8 @@ from codex_storage_proofs_circuits_tpu_torch.models.circuit import (
 from codex_storage_proofs_circuits_tpu_torch.oracle.slot import DataSource, SlotConfig, calc_slot_tree
 
 import bench_torch as BT
+from tools_torch import microbench as MB
+from tools_torch import microbench2 as MB2
 from tools_torch import profile_stages as PS
 from tools_torch import scaling_bench as SB
 
@@ -179,12 +197,19 @@ KERNELS = {
     "mono_perm": ("monolith_tree", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:164"),
     "gl_sponge8": ("poseidon2_gl_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
     "mono_sponge8": ("monolith_sponge8", _SRC + "goldilocks.cu", _TPU + "goldilocks_pallas.py:206"),
+    "mb_mul": ("microbench_mul", _SRC + "microbench.cu", "tools/microbench.py:28"),
+    "mb_add": ("microbench_add", _SRC + "microbench.cu", "tools/microbench.py:37"),
+    "mb_mix": ("microbench_mix", _SRC + "microbench.cu", "tools/microbench.py:46"),
+    "mb_ilp": ("microbench_ilp", _SRC + "microbench.cu", "tools/microbench2.py:31"),
+    "mb_conv": ("microbench_conv", _SRC + "microbench.cu", "tools/microbench2.py:46"),
+    "mb_dot": ("microbench_dot", _SRC + "microbench.cu", "tools/microbench2.py:56"),
 }
 PATH_COUNTERS = {  # the kernels each path must launch, and no other
     "bn254": ("p2_tree", "sponge2", "prng"),
     "poseidon2": ("prng", "gl_perm", "gl_sponge8"),
     "monolith": ("prng", "mono_perm", "mono_sponge8"),
     "verifier": ("perm", "sponge2_planes"),
+    "microbench": ("mb_mul", "mb_add", "mb_mix", "mb_ilp", "mb_conv", "mb_dot"),
 }
 # subtree launches of a path: K4 / K5 of a GL path, 2 slots x (2 chunks x 2
 # + 1 top); K1 of the BN254 path, 2 slots x (2 chunks cut at 2^14 nodes + 2
@@ -490,7 +515,40 @@ def monolith_imad_wide(sass: str) -> dict:
     raise AssertionError("no Monolith compression kernel in the SASS")
 
 
-def sass_mix() -> None:
+# the microbenchmark kernels in the SASS: label -> (a part of the mangled
+# name, the instruction classes it must hold)
+MB_SASS = {
+    "mul": ("elem_kernelILi0E", ("IMAD",)),
+    "add": ("elem_kernelILi1E", ()),
+    "mix": ("elem_kernelILi2E", ("IMAD",)),
+    "ilp4": ("elem_kernelILi3E", ("IMAD",)),
+    "ilp8": ("elem_kernelILi4E", ("IMAD",)),
+    "conv": ("elem_kernelILi5E", ("I2F", "F2I")),
+    "dot64x32": ("dot_kernelILi64ELi32E", ("HMMA",)),
+    "dot128x128": ("dot_kernelILi128ELi128E", ("HMMA",)),
+}
+
+
+def sass_classes(ops: list[str]) -> dict:
+    """Counts of the instruction classes the microbenchmarks measure: IMAD
+    (integer multiplies: IMAD and IMUL without IMAD.MOV, IMAD.IADD and
+    IMAD.SHL, which are moves, adds and shifts on the multiply pipe), I2F
+    (I2F and I2FP), F2I, HMMA."""
+    imad = [o for o in ops if o.startswith(("IMAD", "IMUL"))
+            and not o.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL"))]
+    return {"IMAD": len(imad), "I2F": sum(o.startswith("I2F") for o in ops),
+            "F2I": sum(o.startswith("F2I") for o in ops),
+            "HMMA": sum(o.startswith("HMMA") for o in ops)}
+
+
+def top_ops(ops: list[str], n: int) -> dict:
+    top: dict = {}
+    for o in ops:
+        top[o] = top.get(o, 0) + 1
+    return dict(sorted(top.items(), key=lambda kv: -kv[1])[:n])
+
+
+def sass_mix() -> dict:
     """The static instruction mix of the K2 and K6 byte-row kernels
     (cuobjdump -sass of the built library):
     all instructions, the integer multiplies among them (IMAD and its forms,
@@ -499,10 +557,21 @@ def sass_mix() -> None:
     round loops are rolled and the S-box is a called function, which the
     dump lists inside each kernel's body, so the body's mix is close to
     what the kernel executes.  Then the IMAD.WIDE of a Monolith permutation
-    (monolith_imad_wide)."""
+    (monolith_imad_wide).  Last, for each microbenchmark kernel (MB_SASS),
+    its instruction count, sass_classes and most frequent opcodes: M1-M5
+    are fully unrolled, so their counts are what a thread executes.
+    Returns the microbenchmark kernels' sass_classes by label."""
     sass = cuobjdump_sass(os.path.join(build.build_dir(), build.LIB_NAME))
+    mb: dict = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
+        label = next((k for k, (part, _) in MB_SASS.items() if part in name), None)
+        if label is not None:
+            ops = [op for _, op, _ in _SASS_OP.findall(chunk)]
+            mb[label] = sass_classes(ops)
+            log(f"  microbench {label}: {len(ops)} instructions, {json.dumps(mb[label])},"
+                f" most frequent {json.dumps(top_ops(ops, 8))}")
+            continue
         if "p2_sponge2_kernel" in name and "ByteRows" in name:
             label = "K2 sponge2 rows (kernel body)"
         elif "gl_sponge8_kernel" in name and "ByteRows" in name:
@@ -514,15 +583,13 @@ def sass_mix() -> None:
         muls = [o for o in ops if o.startswith("IMAD")
                 and not o.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL"))]
         fma_pipe = [o for o in ops if o.startswith("IMAD")]
-        top: dict = {}
-        for o in ops:
-            top[o] = top.get(o, 0) + 1
-        most = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+        most = top_ops(ops, 6)
         log(f"  {label}: {len(ops)} instructions, integer multiplies {len(muls)}"
             f" ({100 * len(muls) / max(1, len(ops)):.1f} %), all IMAD forms {len(fma_pipe)}"
             f" ({100 * len(fma_pipe) / max(1, len(ops)):.1f} %), most frequent {json.dumps(most)}")
     log(f"  IMAD.WIDE of a Monolith permutation (K5 compression kernel):"
         f" {json.dumps(monolith_imad_wide(sass))}")
+    return mb
 
 
 def phase_small(tmp: str) -> None:
@@ -1176,6 +1243,163 @@ def phase_tools(tmp: str) -> None:
     log(f"  phase 14: {time.perf_counter() - start:.2f} s")
 
 
+# M6's relative tolerance against its plain version: n_dots x K = 2048
+# float32 roundings of at most 2^-24 each (1.2e-4), times 2 for the order
+# of the sums
+DOT_RTOL = 2.5e-4
+# launch counter -> the tools' variants of its kernel, the one whose numbers
+# the kernels line reports first
+MB_VARIANTS = {"mb_mul": ("mul",), "mb_add": ("add",), "mb_mix": ("mix",),
+               "mb_ilp": ("ilp8", "ilp4"), "mb_conv": ("conv",),
+               "mb_dot": ("dot64x32", "dot128x128")}
+
+
+def op_bound_ms(cls: str, count: float) -> float:
+    """The least time of `count` instructions of class `cls` (flops for the
+    tensor cores) at the card's peak rate for them."""
+    if cls == "tc":
+        return count / MB.TC_PEAK_FLOPS * 1e3
+    return count / (SMS * MB.PEAK_PER_CLOCK[cls] * SM_CLOCK_HZ) * 1e3
+
+
+def clock_under_load(fn, seconds: float = 1.0) -> str:
+    """The SM clock and power draw nvidia-smi reads halfway through
+    `seconds` of back-to-back fn() calls (the host blocks on the full
+    launch queue, so the card stays busy)."""
+    seen: dict = {}
+
+    def sample():
+        time.sleep(seconds / 2)
+        seen["smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+    t = threading.Thread(target=sample)
+    t.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+    torch.cuda.synchronize()
+    t.join()
+    return seen["smi"]
+
+
+def phase_microbench(results: dict, sass: dict) -> dict:
+    """The microbenchmark kernels M1-M6: the two tools with their default
+    variants (the main path of this phase: launches counted), each variant
+    against its plain version at the tools' shapes, the rate checks and the
+    SASS guard.  Returns the tools' launch counts."""
+    start = time.perf_counter()
+    missing = {label: [c for c in need if not sass.get(label, {}).get(c)]
+               for label, (_, need) in MB_SASS.items()}
+    missing = {k: v for k, v in missing.items() if v}
+    if missing:
+        raise AssertionError(f"microbench: the SASS lacks the instructions measured: {missing}")
+    log("  SASS guard: IMAD in mul, mix, ilp4, ilp8; I2F and F2I in conv; HMMA in both dots")
+
+    tool: list = []
+    reset_launches()
+    MB.main([], tool)
+    MB2.main([], tool)
+    launches = check_only("microbench", PATH_COUNTERS["microbench"])
+    log(f"  the tools' run: launches {launches}")
+
+    a16, b16 = MB.u32_inputs(16, "cuda")
+    a12, b12 = MB.u32_inputs(12, "cuda")
+    elem = {  # variant: kernel, plain version, u32 words an element it must move
+        "mul": (lambda: MBC.mul(a16, b16), lambda: MBP.mul(a16, b16), 3),
+        "add": (lambda: MBC.add(a16, b16), lambda: MBP.add(a16, b16), 3),
+        "mix": (lambda: MBC.mix(a16, b16), lambda: MBP.mix(a16, b16), 3),
+        "ilp4": (lambda: MBC.ilp(a12, b12, 4), lambda: MBP.ilp(a12, b12, 4), 3),
+        "ilp8": (lambda: MBC.ilp(a12, b12, 8), lambda: MBP.ilp(a12, b12, 8), 3),
+        "conv": (lambda: MBC.conv(a12, b12), lambda: MBP.conv(a12, b12), 2),  # b is not read
+    }
+    by_name = {r["name"]: r for r in tool}
+    for name, (kernel, plain, words) in elem.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = None
+
+        def run_plain(plain=plain):
+            nonlocal want
+            want = plain()
+
+        plain_ms = events_ms(run_plain, 1, warmup=False)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+        if got.shape != want.shape or got.dtype != want.dtype or err != 0:
+            raise AssertionError(f"microbench {name}: kernel and plain version disagree"
+                                 f" (max abs err {err})")
+        by_name[name].update(max_abs_err=err, plain_ms=plain_ms, library_ms=None,
+                             n_bytes=words * 4 * a16.numel())
+        log(f"  {name}: shape {tuple(got.shape)} max_abs_err {err} (bitwise), plain"
+            f" {plain_ms:.1f} ms")
+
+    for name, (m, k, n_dots) in MB2.DOTS.items():
+        a, w = MB2.dot_inputs(m, k, "cuda")
+        got = MBC.dot(a, w, n_dots)
+        torch.cuda.synchronize()
+        want = None
+
+        def run_plain(a=a, w=w, n_dots=n_dots):
+            nonlocal want
+            want = MBP.dot(a, w, n_dots)
+
+        plain_ms = events_ms(run_plain, 1, warmup=False)
+        diff = (got - want).abs()
+        err = float(diff.max().item())
+        rel = float((diff / want.abs().clamp_min(1.0)).max().item())
+        if got.shape != want.shape or not bool((diff <= DOT_RTOL * want.abs()).all()):
+            raise AssertionError(f"microbench {name}: kernel and plain version disagree"
+                                 f" (max abs err {err}, max rel err {rel:.3g} > {DOT_RTOL})")
+        library_ms = device_ms(lambda: [torch.matmul(w, a) for _ in range(n_dots)], 10)
+        by_name[name].update(max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms,
+                             n_bytes=nbytes(a, w, got))
+        log(f"  {name}: shape {tuple(got.shape)} max_abs_err {err} (max rel {rel:.3g}, within"
+            f" {DOT_RTOL}), plain {plain_ms:.1f} ms, {n_dots} x torch.matmul (bf16 out)"
+            f" {library_ms:.4f} ms")
+
+    log(f"  rates at the maximum SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz, {SMS} SMs:")
+    above = []
+    for name, r in by_name.items():
+        mem_ms = r["n_bytes"] / MEM_BYTES_PER_S * 1e3
+        ops_ms = op_bound_ms(r["class"], r["count"])
+        r.update(bound_ms=max(mem_ms, ops_ms), bound_by="bytes" if mem_ms >= ops_ms else "operations")
+        share = ops_ms / r["ms"]
+        if r["class"] == "tc":
+            log(f"    {name}: {r['ms']:.4f} ms, {r['tflops']:.2f} TFLOP/s of the bf16 tensor cores'"
+                f" {MB.TC_PEAK_FLOPS / 1e12:.0f} ({100 * share:.1f} %); bound {r['bound_ms']:.4f} ms"
+                f" by {r['bound_by']}; {MB2.DOTS[name][2]} x torch.matmul {r['library_ms']:.4f} ms"
+                f" ({r['count'] / r['library_ms'] / 1e9:.2f} TFLOP/s)")
+        else:
+            rate = r["count"] / (r["ms"] * 1e-3) / (SMS * SM_CLOCK_HZ)
+            log(f"    {name}: {r['ms']:.4f} ms, {r['class']} {rate:.2f} a clock an SM of"
+                f" {MB.PEAK_PER_CLOCK[r['class']]} ({100 * share:.1f} %); bound"
+                f" {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        if share > 1.05:
+            above.append(name)
+    loaded = clock_under_load(lambda: MBC.mul(a16, b16))
+    load_hz = float(loaded.split()[0]) * 1e6
+    log(f"  SM clock and power draw under M1 back to back: {loaded} (maximum SM clock"
+        f" {SM_CLOCK_HZ / 1e6:.0f} MHz)")
+    for name in ("mul", "ilp8"):
+        per_s = by_name[name]["count"] / (by_name[name]["ms"] * 1e-3) / SMS
+        rate = per_s / SM_CLOCK_HZ
+        log(f"  u32 multiply rate, {name}: {rate:.2f} a clock an SM at the maximum SM clock"
+            f" ({per_s / load_hz:.2f} at the clock under load); bound() assumes"
+            f" IMAD_PER_CLOCK = {IMAD_PER_CLOCK} ({100 * rate / IMAD_PER_CLOCK:.1f} %)")
+    if above:
+        raise AssertionError(f"microbench: above 105 % of their peak (work removed?): {above}")
+
+    for counter, variants in MB_VARIANTS.items():
+        r = by_name[variants[0]]
+        results[counter] = {
+            "max_abs_err": max(by_name[v]["max_abs_err"] for v in variants),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+    log(f"  phase 15: {time.perf_counter() - start:.2f} s")
+    return launches
+
+
 def main() -> int:
     global SM_CLOCK_HZ
     if not torch.cuda.is_available():
@@ -1201,7 +1425,7 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  " + line.strip())
-    sass_mix()
+    mb_sass = sass_mix()
 
     log("[3] kernels against their plain versions")
     results: dict = {}
@@ -1233,6 +1457,8 @@ def main() -> int:
         phase_native(tmp, runs, smi)
         log("[14] the port's measurement tools: bench_torch.py, profile_stages, scaling_bench")
         phase_tools(tmp)
+    log("[15] the microbenchmark kernels M1-M6: the tools, plain versions, rates against peaks")
+    launches["microbench"] = phase_microbench(results, mb_sass)
 
     for key in ("sponge2:planes", "gl_sponge8:planes", "mono_sponge8:planes"):
         r = results[key]

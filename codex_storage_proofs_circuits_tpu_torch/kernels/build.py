@@ -44,11 +44,13 @@ NVCC_TIMEOUT_S = 900
 # K2 "sponge2", K3 "prng", K4 "gl_perm", K5 "mono_perm", K6 "gl_sponge8" /
 # "mono_sponge8".  K2 and K6 count their byte-row entries (the main paths')
 # under those names and their limb-plane entries (the JAX parity API) under
-# "..._planes".
+# "..._planes".  The microbenchmark kernels M1-M6 (csrc/microbench.cu)
+# count under "mb_mul", "mb_add", "mb_mix", "mb_ilp", "mb_conv", "mb_dot".
 LAUNCHES = {
     "p2_tree": 0, "perm": 0, "sponge2": 0, "prng": 0,
     "gl_perm": 0, "mono_perm": 0, "gl_sponge8": 0, "mono_sponge8": 0,
     "sponge2_planes": 0, "gl_sponge8_planes": 0, "mono_sponge8_planes": 0,
+    "mb_mul": 0, "mb_add": 0, "mb_mix": 0, "mb_ilp": 0, "mb_conv": 0, "mb_dot": 0,
 }
 
 _lock = threading.Lock()
@@ -76,6 +78,10 @@ _SIGNATURES = {
     "cspc_gl_sponge8": [_I, _VP, _LL, _LL, _LL, _I, _VP, _LL, _I, _VP],
     # hash, rows, row_stride, col_stride, cell_size, out, n, device, stream
     "cspc_gl_sponge8_rows": [_I, _VP, _LL, _LL, _I, _VP, _LL, _I, _VP],
+    # op, a, b, out, n, device, stream
+    "cspc_mb_elem": [_I, _VP, _VP, _VP, _LL, _I, _VP],
+    # m, k, a, w, out, n_dots, cols, device, stream
+    "cspc_mb_dot": [_I, _I, _VP, _VP, _VP, _I, _LL, _I, _VP],
 }
 
 

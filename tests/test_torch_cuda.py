@@ -377,3 +377,40 @@ def test_bench_torch_small_on_cuda(cuda, tmp_path, capsys):
     for k in ("perm", "p2_tree", "sponge2", "prng", "gl_perm", "mono_perm", "gl_sponge8",
               "mono_sponge8"):
         assert build.LAUNCHES[k] > 0, k
+
+
+def test_microbench_kernels_match_plain(cuda):
+    # M1-M6 of csrc/microbench.cu against their plain versions at one tile
+    # of the tools' shapes (M1-M5 bitwise, M6 within 2.5e-4 relative), each
+    # launch counted; the shapes the kernels are not built for are refused
+    from codex_storage_proofs_circuits_tpu_torch.ops import microbench_cuda as MC
+    from codex_storage_proofs_circuits_tpu_torch.ops import microbench_plain as MP
+
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(0, 1 << 16, (MP.ROWS, MP.COLS), dtype=np.uint32))
+    b = torch.from_numpy(rng.integers(1, 1 << 16, (MP.ROWS, MP.COLS), dtype=np.uint32))
+    ac, bc = a.to(cuda), b.to(cuda)
+    cases = [("mb_mul", MC.mul, MP.mul), ("mb_add", MC.add, MP.add), ("mb_mix", MC.mix, MP.mix),
+             ("mb_conv", MC.conv, MP.conv)]
+    cases += [("mb_ilp", lambda x, y, n=n: MC.ilp(x, y, n), lambda x, y, n=n: MP.ilp(x, y, n))
+              for n in MC.ILP_STREAMS]
+    for counter, kernel, plain in cases:
+        before = build.LAUNCHES[counter]
+        assert torch.equal(kernel(ac, bc).cpu(), plain(a, b)), counter
+        assert build.LAUNCHES[counter] == before + 1
+    for m, k in MC.DOT_SHAPES:
+        n_dots = 64 * 32 // k
+        av = torch.from_numpy(rng.integers(0, 256, (k, MP.COLS)).astype(np.float32))
+        wv = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.float32))
+        av, wv = av.to(torch.bfloat16), wv.to(torch.bfloat16)
+        before = build.LAUNCHES["mb_dot"]
+        got = MC.dot(av.to(cuda), wv.to(cuda), n_dots).cpu()
+        want = MP.dot(av, wv, n_dots)
+        assert build.LAUNCHES["mb_dot"] == before + 1
+        assert got.shape == want.shape and bool(((got - want).abs() <= 2.5e-4 * want.abs()).all())
+    with pytest.raises(ValueError):
+        MC.ilp(ac, bc, 2)
+    with pytest.raises(ValueError):  # a (16, 32) W is not one of the kernel's shapes
+        MC.dot(av.to(cuda)[:32], wv.to(cuda)[:16, :32], 1)
+    with pytest.raises(ValueError):
+        MC.mul(ac.to(torch.int32), bc.to(torch.int32))

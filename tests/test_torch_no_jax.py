@@ -30,7 +30,7 @@ def test_port_modules_are_found():
                  "fields.gl_tables", "oracle.goldilocks_pipeline", "models.circuit",
                  "parallel", "parallel.mesh", "parallel.tree", "parallel.gl_tree",
                  "parallel.proof_input", "parallel.distributed", "entry", "native",
-                 "native.build"):
+                 "native.build", "ops.microbench_plain", "ops.microbench_cuda"):
         assert f"{port.__name__}.{name}" in mods
 
 
@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
                               "tools_torch.tile_sweep",
                               "tools_torch.print_testvectors", "bench_torch",
                               "tools_torch.profile_stages", "tools_torch.scaling_bench",
-                              "tools_torch.gen_vectors", "tools_torch.gen_gl_vectors"]
+                              "tools_torch.gen_vectors", "tools_torch.gen_gl_vectors",
+                              "tools_torch.microbench", "tools_torch.microbench2"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
