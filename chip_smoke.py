@@ -89,13 +89,17 @@ Phases:
      shapes (their launch counts are that path's), then each variant is
      held against its plain version on the card (M1-M5 bitwise, M6 within
      a relative 2.5e-4); each kernel's rate of the instructions that bound
-     it, an SM a clock, is set beside its peak (IMAD and integer logic 64,
-     conversions 16, bf16 tensor cores 989 TFLOP/s), and a kernel above
+     it, an SM a clock at the maximum SM clock, is set beside its peak
+     (IMAD and integer logic 64, both integer pipes 128, conversions 16,
+     bf16 tensor-core MACs 2048; M3's bound is that of the pipes its SASS
+     loads most, tools_torch/microbench.sass_bound), and a kernel above
      105 % of its peak fails the phase (the compiler removed work), as
      does a build whose SASS lacks the IMAD of M1, M3 and M4, the I2F and
-     F2I of M5 or the HMMA of M6 (phase 2 counts them).  The u32 multiply
-     rate of M1 and M4 (ilp8) stands beside IMAD_PER_CLOCK, which bound()
-     assumes.
+     F2I of M5 or the HGMMA (wgmma) of M6, or still holds an HMMA
+     (mma.sync) in M6 (phase 2 counts them).  M6's rate in steady state,
+     from the time of twice the tools' products less that of their count,
+     is logged beside the same peak.  The u32 multiply rate of M1 and M4
+     (ilp8) stands beside IMAD_PER_CLOCK, which bound() assumes.
 
 Each main path (phase 5, phase 7 once per hash, and phase 15's tools) sets the launch counts
 to 0 just before its CLI run and reads them just after: every kernel of
@@ -117,7 +121,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -482,16 +485,6 @@ def phase_kernels(results: dict) -> None:
         f" sponge {CHUNK} cells of {CELL} bytes, {felts.shape[0]} felts)")
 
 
-def cuobjdump_sass(lib: str) -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
-    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
-                          check=True).stdout
-
-
-_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
-
-
 def monolith_imad_wide(sass: str) -> dict:
     """IMAD.WIDE (32 x 32 -> 64-bit multiply-adds) a Monolith permutation
     executes, from the SASS of the K5 compression kernel (gl_perm_kernel<1>,
@@ -502,7 +495,7 @@ def monolith_imad_wide(sass: str) -> dict:
         name = chunk.split("\n", 1)[0].strip()
         if "gl_perm_kernel" not in name or "ILi1E" not in name:
             continue
-        ops = [(int(a, 16), op, rest) for a, op, rest in _SASS_OP.findall(chunk)]
+        ops = [(int(a, 16), op, rest) for a, op, rest in MB.SASS_OP.findall(chunk)]
         loops = [(int(m.group(1), 16), a) for a, op, rest in ops if op.startswith("BRA")
                  for m in [re.search(r"0x([0-9a-f]+)", rest)] if m and int(m.group(1), 16) < a]
         wide = [a for a, op, _ in ops if op.startswith("IMAD.WIDE")]
@@ -516,16 +509,16 @@ def monolith_imad_wide(sass: str) -> dict:
 
 
 # the microbenchmark kernels in the SASS: label -> (a part of the mangled
-# name, the instruction classes it must hold)
+# name, the instruction classes it must hold, the classes it must not)
 MB_SASS = {
-    "mul": ("elem_kernelILi0E", ("IMAD",)),
-    "add": ("elem_kernelILi1E", ()),
-    "mix": ("elem_kernelILi2E", ("IMAD",)),
-    "ilp4": ("elem_kernelILi3E", ("IMAD",)),
-    "ilp8": ("elem_kernelILi4E", ("IMAD",)),
-    "conv": ("elem_kernelILi5E", ("I2F", "F2I")),
-    "dot64x32": ("dot_kernelILi64ELi32E", ("HMMA",)),
-    "dot128x128": ("dot_kernelILi128ELi128E", ("HMMA",)),
+    "mul": ("elem_kernelILi0E", ("IMAD",), ()),
+    "add": ("elem_kernelILi1E", (), ()),
+    "mix": (MB.MIX_KERNEL, ("IMAD",), ()),
+    "ilp4": ("elem_kernelILi3E", ("IMAD",), ()),
+    "ilp8": ("elem_kernelILi4E", ("IMAD",), ()),
+    "conv": ("elem_kernelILi5E", ("I2F", "F2I"), ()),
+    "dot64x32": ("dot_wgmma_kernelILi64ELi32E", ("HGMMA",), ("HMMA",)),
+    "dot128x128": ("dot_wgmma_kernelILi128ELi128E", ("HGMMA",), ("HMMA",)),
 }
 
 
@@ -533,12 +526,13 @@ def sass_classes(ops: list[str]) -> dict:
     """Counts of the instruction classes the microbenchmarks measure: IMAD
     (integer multiplies: IMAD and IMUL without IMAD.MOV, IMAD.IADD and
     IMAD.SHL, which are moves, adds and shifts on the multiply pipe), I2F
-    (I2F and I2FP), F2I, HMMA."""
+    (I2F and I2FP), F2I, HMMA (mma.sync) and HGMMA (wgmma)."""
     imad = [o for o in ops if o.startswith(("IMAD", "IMUL"))
             and not o.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL"))]
     return {"IMAD": len(imad), "I2F": sum(o.startswith("I2F") for o in ops),
             "F2I": sum(o.startswith("F2I") for o in ops),
-            "HMMA": sum(o.startswith("HMMA") for o in ops)}
+            "HMMA": sum(o.startswith("HMMA") for o in ops),
+            "HGMMA": sum(o.startswith("HGMMA") for o in ops)}
 
 
 def top_ops(ops: list[str], n: int) -> dict:
@@ -561,13 +555,13 @@ def sass_mix() -> dict:
     its instruction count, sass_classes and most frequent opcodes: M1-M5
     are fully unrolled, so their counts are what a thread executes.
     Returns the microbenchmark kernels' sass_classes by label."""
-    sass = cuobjdump_sass(os.path.join(build.build_dir(), build.LIB_NAME))
+    sass = MB.cuobjdump_sass(os.path.join(build.build_dir(), build.LIB_NAME))
     mb: dict = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        label = next((k for k, (part, _) in MB_SASS.items() if part in name), None)
+        label = next((k for k, (part, _, _) in MB_SASS.items() if part in name), None)
         if label is not None:
-            ops = [op for _, op, _ in _SASS_OP.findall(chunk)]
+            ops = [op for _, op, _ in MB.SASS_OP.findall(chunk)]
             mb[label] = sass_classes(ops)
             log(f"  microbench {label}: {len(ops)} instructions, {json.dumps(mb[label])},"
                 f" most frequent {json.dumps(top_ops(ops, 8))}")
@@ -579,7 +573,7 @@ def sass_mix() -> dict:
             label = f"K6 sponge8 rows, {core} core (kernel body)"
         else:
             continue
-        ops = [op for _, op, _ in _SASS_OP.findall(chunk)]
+        ops = [op for _, op, _ in MB.SASS_OP.findall(chunk)]
         muls = [o for o in ops if o.startswith("IMAD")
                 and not o.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL"))]
         fma_pipe = [o for o in ops if o.startswith("IMAD")]
@@ -1243,10 +1237,6 @@ def phase_tools(tmp: str) -> None:
     log(f"  phase 14: {time.perf_counter() - start:.2f} s")
 
 
-# M6's relative tolerance against its plain version: n_dots x K = 2048
-# float32 roundings of at most 2^-24 each (1.2e-4), times 2 for the order
-# of the sums
-DOT_RTOL = 2.5e-4
 # launch counter -> the tools' variants of its kernel, the one whose numbers
 # the kernels line reports first
 MB_VARIANTS = {"mb_mul": ("mul",), "mb_add": ("add",), "mb_mix": ("mix",),
@@ -1256,9 +1246,10 @@ MB_VARIANTS = {"mb_mul": ("mul",), "mb_add": ("add",), "mb_mix": ("mix",),
 
 def op_bound_ms(cls: str, count: float) -> float:
     """The least time of `count` instructions of class `cls` (flops for the
-    tensor cores) at the card's peak rate for them."""
+    tensor cores, 2 a MAC) at the card's peak rate for them at the maximum
+    SM clock."""
     if cls == "tc":
-        return count / MB.TC_PEAK_FLOPS * 1e3
+        return count / (2 * SMS * MB.TC_MACS_PER_CLOCK * SM_CLOCK_HZ) * 1e3
     return count / (SMS * MB.PEAK_PER_CLOCK[cls] * SM_CLOCK_HZ) * 1e3
 
 
@@ -1291,11 +1282,17 @@ def phase_microbench(results: dict, sass: dict) -> dict:
     SASS guard.  Returns the tools' launch counts."""
     start = time.perf_counter()
     missing = {label: [c for c in need if not sass.get(label, {}).get(c)]
-               for label, (_, need) in MB_SASS.items()}
+               for label, (_, need, _) in MB_SASS.items()}
     missing = {k: v for k, v in missing.items() if v}
     if missing:
         raise AssertionError(f"microbench: the SASS lacks the instructions measured: {missing}")
-    log("  SASS guard: IMAD in mul, mix, ilp4, ilp8; I2F and F2I in conv; HMMA in both dots")
+    held = {label: [c for c in forbid if sass.get(label, {}).get(c)]
+            for label, (_, _, forbid) in MB_SASS.items()}
+    held = {k: v for k, v in held.items() if v}
+    if held:
+        raise AssertionError(f"microbench: the SASS holds instructions it must not: {held}")
+    log("  SASS guard: IMAD in mul, mix, ilp4, ilp8; I2F and F2I in conv; HGMMA and no HMMA"
+        " in both dots")
 
     tool: list = []
     reset_launches()
@@ -1348,16 +1345,20 @@ def phase_microbench(results: dict, sass: dict) -> dict:
         diff = (got - want).abs()
         err = float(diff.max().item())
         rel = float((diff / want.abs().clamp_min(1.0)).max().item())
-        if got.shape != want.shape or not bool((diff <= DOT_RTOL * want.abs()).all()):
+        if got.shape != want.shape or not bool((diff <= MBC.DOT_RTOL * want.abs()).all()):
             raise AssertionError(f"microbench {name}: kernel and plain version disagree"
-                                 f" (max abs err {err}, max rel err {rel:.3g} > {DOT_RTOL})")
+                                 f" (max abs err {err}, max rel err {rel:.3g} > {MBC.DOT_RTOL})")
         library_ms = device_ms(lambda: [torch.matmul(w, a) for _ in range(n_dots)], 10)
         by_name[name].update(max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms,
                              n_bytes=nbytes(a, w, got))
         log(f"  {name}: shape {tuple(got.shape)} max_abs_err {err} (max rel {rel:.3g}, within"
-            f" {DOT_RTOL}), plain {plain_ms:.1f} ms, {n_dots} x torch.matmul (bf16 out)"
+            f" {MBC.DOT_RTOL}), plain {plain_ms:.1f} ms, {n_dots} x torch.matmul (bf16 out)"
             f" {library_ms:.4f} ms")
 
+    pipes = by_name["mix"]["pipes"]
+    log(f"  mix: its SASS's integer instructions an element by the pipes that must issue them"
+        f" {pipes}: bounds " + ", ".join(f"{c} {op_bound_ms(c, pipes[c] * a16.numel()):.6f} ms"
+                                         for c in pipes))
     log(f"  rates at the maximum SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz, {SMS} SMs:")
     above = []
     for name, r in by_name.items():
@@ -1366,17 +1367,34 @@ def phase_microbench(results: dict, sass: dict) -> dict:
         r.update(bound_ms=max(mem_ms, ops_ms), bound_by="bytes" if mem_ms >= ops_ms else "operations")
         share = ops_ms / r["ms"]
         if r["class"] == "tc":
-            log(f"    {name}: {r['ms']:.4f} ms, {r['tflops']:.2f} TFLOP/s of the bf16 tensor cores'"
-                f" {MB.TC_PEAK_FLOPS / 1e12:.0f} ({100 * share:.1f} %); bound {r['bound_ms']:.4f} ms"
+            peak = 2 * SMS * MB.TC_MACS_PER_CLOCK * SM_CLOCK_HZ
+            log(f"    {name}: {r['ms']:.6f} ms, {r['tflops']:.2f} TFLOP/s of the bf16 tensor cores'"
+                f" {peak / 1e12:.2f} ({100 * share:.1f} %); bound {r['bound_ms']:.6f} ms"
                 f" by {r['bound_by']}; {MB2.DOTS[name][2]} x torch.matmul {r['library_ms']:.4f} ms"
                 f" ({r['count'] / r['library_ms'] / 1e9:.2f} TFLOP/s)")
         else:
             rate = r["count"] / (r["ms"] * 1e-3) / (SMS * SM_CLOCK_HZ)
-            log(f"    {name}: {r['ms']:.4f} ms, {r['class']} {rate:.2f} a clock an SM of"
+            log(f"    {name}: {r['ms']:.6f} ms, {r['class']} {rate:.2f} a clock an SM of"
                 f" {MB.PEAK_PER_CLOCK[r['class']]} ({100 * share:.1f} %); bound"
-                f" {r['bound_ms']:.4f} ms by {r['bound_by']}")
+                f" {r['bound_ms']:.6f} ms by {r['bound_by']}")
         if share > 1.05:
             above.append(name)
+    # M6 in steady state: the time of twice the tools' products less that
+    # of the tools' count (a call of no products still reads A and W and
+    # writes the output, and part of that overlaps the products of a longer
+    # call, so it is not subtracted), against the tensor cores' MACs a
+    # clock.  Logged only: a difference of two times, it is too noisy to
+    # check.
+    for name, (m, k, n_dots) in MB2.DOTS.items():
+        a, w = MB2.dot_inputs(m, k, "cuda")
+        times = {n: device_ms(lambda n=n: MBC.dot(a, w, n), 20) for n in (0, n_dots, 2 * n_dots)}
+        macs = m * k * a.shape[1] * n_dots
+        rate = 2 * macs / ((times[2 * n_dots] - times[n_dots]) * 1e-3)
+        share = rate / 2 / (SMS * SM_CLOCK_HZ) / MB.TC_MACS_PER_CLOCK
+        walls = ", ".join(f"{n} products {t:.6f} ms" for n, t in times.items())
+        log(f"  {name} in steady state: {walls}: {n_dots} more products at"
+            f" {rate / 1e12:.2f} TFLOP/s, {share * MB.TC_MACS_PER_CLOCK:.1f} MACs a clock an SM"
+            f" ({100 * share:.1f} % of {MB.TC_MACS_PER_CLOCK} at {SM_CLOCK_HZ / 1e6:.0f} MHz)")
     loaded = clock_under_load(lambda: MBC.mul(a16, b16))
     load_hz = float(loaded.split()[0]) * 1e6
     log(f"  SM clock and power draw under M1 back to back: {loaded} (maximum SM clock"
@@ -1423,7 +1441,7 @@ def main() -> int:
     log(f"[2] build: {time.perf_counter() - t0:.2f} s in {build.build_dir()}")
     with open(os.path.join(build.build_dir(), "nvcc.log")) as f:
         for line in f:
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "wgmma")):
                 log("  " + line.strip())
     mb_sass = sass_mix()
 

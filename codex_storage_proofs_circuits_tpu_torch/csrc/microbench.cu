@@ -49,16 +49,33 @@
 // one.  On sm_90 ptxas makes the int -> float conversion I2FP, which does
 // not issue on the 16-a-clock conversion pipe; F2I does.
 //
-// Design, M6: warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate) in
-// inline PTX.  A CTA owns a strip of kDotCols = 64 columns (512 CTAs over
-// the tools' 32768 columns), and M / 16 warps, each 16 rows of W by the
-// whole strip (its (16, 64) f32 accumulator is 32 registers a thread).  W
-// goes into shared memory once a CTA and each warp keeps its rows' A
-// fragments in registers for all products; the strip of A stays in shared
-// memory (column-major, padded by 8 bf16 a column so that B fragment loads
-// meet no bank conflict) across the n_dots products, and the CTA adds 1 to
-// it in bf16 (round to nearest even) between two products.  wgmma, which
-// the full tensor-core rate needs, is work for a later change.
+// Design, M6: wgmma (warpgroup matrix multiply, sm_90a) with the operand
+// that changes between products in registers.  The kernel computes the
+// transpose, out^T (cols, M) = sum_d A_d^T (cols, K) @ W^T (K, M): wgmma's
+// m64 rows are 64 columns of A (a CTA of one warpgroup owns a strip of
+// kDotCols = 64 columns, 512 CTAs over the tools' 32768), its N is W's M
+// (64 or 128), and W^T is the B operand in shared memory.  W is row-major
+// (M, K), so W^T is K-major, the layout B takes untransposed; it is
+// written once a CTA into wgmma's layout without swizzle (core matrices of
+// 8 rows by 16 bytes).  The strip of A is staged once through shared
+// memory (16-byte copies) and read into A fragments with ldmatrix.trans;
+// from then on it lives in registers.  The bf16 +1 between products is an
+// add.rn.bf16x2 on the thread's own fragment registers (round to nearest
+// even: 257 rounds to 256, so no product may be folded into another), and
+// the f32 accumulator (M / 2 registers a thread) stays in registers across
+// all n_dots products.  The A registers of a wgmma in flight may be
+// neither read nor written, so the strip is held twice: buffer 0 holds
+// A_d for even d, buffer 1 for odd d; a buffer is advanced two steps
+// (two rounded adds, as two products apart apply them) once the wgmma
+// that read it has retired (wgmma.wait_group 1: one product stays in
+// flight while the next one's registers are made).  A third copy kept as
+// the source of both would cost K / 4 more registers a thread: 160 at K =
+// 128 against 128, two CTAs an SM instead of three.
+// The output strip is staged through shared memory so that out's rows are
+// written with 16-byte stores.  What this leaves above the bound is a
+// call's fixed cost: every CTA loads its strip, then multiplies, then
+// writes its output (8 or 16 MB in all), and the CTAs of one wave do so in
+// step, so the copies do not overlap the products.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -69,8 +86,11 @@ namespace {
 constexpr int kReps = 512;   // op groups of M1 and M2; M3 runs kReps / 4
 constexpr int kReps2 = 256;  // products of M4; M5 runs kReps2 / 2 round trips
 constexpr int kThreads = 256;
-constexpr int kDotCols = 64;  // columns of A a CTA of M6 owns
-constexpr int kDotPad = 8;    // bf16 of padding a row of W and a column of A
+constexpr int kDotCols = 64;      // columns of A a CTA of M6 owns: wgmma's 64 rows
+constexpr int kDotThreads = 128;  // one warpgroup a CTA
+constexpr int kStripPad = 8;      // bf16 of padding a row of the staged strip of A
+constexpr int kOutPad = 4;        // f32 of padding a row of the staged output
+constexpr uint32_t kBf16x2One = 0x3F803F80u;  // (1.0, 1.0) as two bf16
 
 enum Op { kMul = 0, kAdd = 1, kMix = 2, kIlp4 = 3, kIlp8 = 4, kConv = 5 };
 
@@ -170,91 +190,225 @@ elem_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   out[i] = body<OP>(a[i], b[i], zero);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
+// M6's shared memory.  w: W (M, K) as wgmma's B operand (K-major, no
+// swizzle): core matrices of 8 rows of W by 8 of its K values (8 x 16
+// bytes), the K / 8 core matrices of 8 rows side by side, then the next 8
+// rows.  strip: the CTA's columns of A as A lays them out (K rows
+// of kDotCols bf16, padded so that ldmatrix's 8 row addresses fall in
+// distinct banks); out: the output strip (M rows of kDotCols f32, padded
+// so that the accumulator's stores meet no bank conflict).  Raw 16-bit
+// words: the kernel only moves them.
 template <int M, int K>
-constexpr int dot_smem_bytes() {
-  return (M + kDotCols) * (K + kDotPad) * (int)sizeof(__nv_bfloat16);
+struct DotSmem {
+  uint16_t w[M * K];
+  union {
+    uint16_t strip[K][kDotCols + kStripPad];
+    float out[M][kDotCols + kOutPad];
+  };
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma's descriptor of an operand in shared memory without swizzle: the
+// start address, the leading byte offset (between the core matrices of
+// neighbouring K) and the stride byte offset (between neighbouring groups
+// of 8 rows), each in 16-byte units; layout type 0 (no swizzle) in bits
+// 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_add_one(uint32_t x) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(kBf16x2One));
+  return r;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving a register's reads and writes across the
+// wgmma waits around this point (the wgmma reads and writes it unseen).
+template <int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; s++)
+#pragma unroll
+    for (int i = 0; i < 4; i++) asm volatile("" : "+r"(r[s][i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; i++) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define CSPC_ACC8(d, i)                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64, N) f32 += a (64, 16) bf16 in registers @ B (16, N) bf16 in shared
+// memory (K-major), one warpgroup.  Fragments (PTX ISA): warp w of the
+// warpgroup holds rows 16w .. 16w + 15; with g = lane / 4 and t = lane %
+// 4, a[0] holds row g at columns 2t, 2t + 1, a[1] row g + 8, a[2] and a[3]
+// the same rows at columns 2t + 8, 2t + 9; d[4j + 2h + e] is row g + 8h,
+// column 8j + 2t + e.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : CSPC_ACC8(d, 0), CSPC_ACC8(d, 8), CSPC_ACC8(d, 16), CSPC_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : CSPC_ACC8(d, 0), CSPC_ACC8(d, 8), CSPC_ACC8(d, 16), CSPC_ACC8(d, 24),
+        CSPC_ACC8(d, 32), CSPC_ACC8(d, 40), CSPC_ACC8(d, 48), CSPC_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+#undef CSPC_ACC8
+
+// One product: acc += A_d^T @ W^T over K / 16 slices of k16, one commit
+// group.  The descriptor of slice s starts 2 core matrices (256 bytes, 16
+// units) after slice s - 1's.
+template <int M, int K>
+__device__ __forceinline__ void dot_product(float (&acc)[M / 2], uint32_t (&f)[K / 16][4],
+                                            uint64_t desc) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < K / 16; s++) wgmma_rs<M>(acc, f[s], desc + 16 * s);
+  wgmma_commit();
+}
+
+// Two bf16 steps A = bf16(A + 1) on a buffer of fragments.
+template <int K>
+__device__ __forceinline__ void advance_two(uint32_t (&f)[K / 16][4]) {
+#pragma unroll
+  for (int s = 0; s < K / 16; s++)
+#pragma unroll
+    for (int i = 0; i < 4; i++) f[s][i] = bf16x2_add_one(bf16x2_add_one(f[s][i]));
 }
 
 // out (M, cols) f32 = sum over n_dots of W @ A_d, A_0 = a (K, cols) bf16,
-// A_{d+1} = bf16(A_d + 1); W (M, K) bf16; all row-major.  Fragment layouts
-// of mma.m16n8k16 (PTX ISA): with g = lane / 4 and t = lane % 4, the A
-// fragment holds rows g and g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9;
-// the B fragment rows 2t, 2t + 1 and 2t + 8, 2t + 9 of column g; the
-// accumulator rows g and g + 8 at columns 2t and 2t + 1.
+// A_{d+1} = bf16(A_d + 1); W (M, K) bf16; all row-major, a and w 16-byte
+// aligned.  One warpgroup a CTA, 64 columns.
 template <int M, int K>
-__global__ void __launch_bounds__(M / 16 * 32)
-dot_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
-           float* __restrict__ out, int n_dots, long long cols) {
-  static_assert(M % 16 == 0 && K % 16 == 0, "M and K are multiples of 16");
-  constexpr int kStride = K + kDotPad;  // bf16 a row of sW, a column of sA
-  constexpr int kWarpThreads = M / 16 * 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(smem);  // [M][kStride]
-  __nv_bfloat16* sA = sW + M * kStride;                       // [kDotCols][kStride]
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = (tid >> 5) * 16;
+__global__ void __launch_bounds__(kDotThreads)
+dot_wgmma_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
+                 float* __restrict__ out, int n_dots, long long cols) {
+  static_assert(M == 64 || M == 128, "wgmma's N is W's M: 64 or 128");
+  static_assert(K % 16 == 0, "K is a multiple of wgmma's k16");
+  constexpr int kSlices = K / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  DotSmem<M, K>& sm = *reinterpret_cast<DotSmem<M, K>*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long c0 = (long long)blockIdx.x * kDotCols;
 
-  for (int i = tid; i < M * K; i += kWarpThreads) sW[(i / K) * kStride + i % K] = w[i];
-  for (int i = tid; i < K * kDotCols; i += kWarpThreads) {
-    const int k = i / kDotCols, n = i % kDotCols;
-    sA[n * kStride + k] = a[(long long)k * cols + c0 + n];
+  // W into B's layout, 16 bytes a thread a step in shared memory's order:
+  // chunk j is row 8 (j / K) + j % 8 of W, its K values 8 (j / 8 % (K / 8)) on
+  const uint4* w4 = reinterpret_cast<const uint4*>(w);
+  uint4* sw4 = reinterpret_cast<uint4*>(sm.w);
+  for (int j = tid; j < M * K / 8; j += kDotThreads) {
+    const int n = (j / K) * 8 + (j & 7), kc = (j >> 3) % (K / 8);
+    sw4[j] = w4[n * (K / 8) + kc];
   }
+  for (int j = tid; j < K * kDotCols / 8; j += kDotThreads) {
+    const int k = j / (kDotCols / 8), q = j % (kDotCols / 8);
+    *reinterpret_cast<uint4*>(&sm.strip[k][8 * q]) =
+        *reinterpret_cast<const uint4*>(a + k * cols + c0 + 8 * q);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // W, for wgmma's reads
   __syncthreads();
 
-  uint32_t wf[K / 16][4];  // this warp's 16 rows of W as A fragments
+  // A fragments of slice s: 8 x 8 matrices (k0, c0), (k0, c0 + 8), (k0 +
+  // 8, c0), (k0 + 8, c0 + 8) of the strip, k0 = 16 s, c0 = 16 warp, each
+  // transposed; lane L gives row L % 8 of matrix L / 8
+  uint32_t f0[kSlices][4], f1[kSlices][4];
+  {
+    const int i = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int ks = 0; ks < K / 16; ks++) {
-    const __nv_bfloat16* p = sW + (r0 + g) * kStride + ks * 16 + 2 * t;
-    wf[ks][0] = ld32(p);
-    wf[ks][1] = ld32(p + 8 * kStride);
-    wf[ks][2] = ld32(p + 8);
-    wf[ks][3] = ld32(p + 8 * kStride + 8);
-  }
-
-  float acc[kDotCols / 8][4];
+    for (int s = 0; s < kSlices; s++) {
+      const uint16_t* row = sm.strip[16 * s + 8 * (i >> 1) + r];
+      ldmatrix_x4_trans(f0[s], smem_addr(row + 16 * warp + 8 * (i & 1)));
 #pragma unroll
-  for (int nb = 0; nb < kDotCols / 8; nb++)
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-
-  for (int d = 0; d < n_dots; d++) {
-#pragma unroll
-    for (int nb = 0; nb < kDotCols / 8; nb++) {
-      const __nv_bfloat16* col = sA + (nb * 8 + g) * kStride + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < K / 16; ks++)
-        mma_bf16(acc[nb], wf[ks], ld32(col + ks * 16), ld32(col + ks * 16 + 8));
-    }
-    if (d + 1 < n_dots) {
-      __syncthreads();  // every warp has read this A
-      for (int i = tid; i < kDotCols * K / 2; i += kWarpThreads) {
-        __nv_bfloat162* p =
-            reinterpret_cast<__nv_bfloat162*>(sA + (i / (K / 2)) * kStride) + i % (K / 2);
-        const float2 f = __bfloat1622float2(*p);
-        *p = __floats2bfloat162_rn(f.x + 1.f, f.y + 1.f);
-      }
-      __syncthreads();
+      for (int e = 0; e < 4; e++) f1[s][e] = bf16x2_add_one(f0[s][e]);
     }
   }
+  const uint64_t desc = smem_desc(smem_addr(sm.w), 128, (K / 8) * 128);
 
+  float acc[M / 2];
 #pragma unroll
-  for (int nb = 0; nb < kDotCols / 8; nb++) {
-    float* o = out + (long long)(r0 + g) * cols + c0 + nb * 8 + 2 * t;
-    *reinterpret_cast<float2*>(o) = make_float2(acc[nb][0], acc[nb][1]);
-    *reinterpret_cast<float2*>(o + 8 * cols) = make_float2(acc[nb][2], acc[nb][3]);
+  for (int i = 0; i < M / 2; i++) acc[i] = 0.f;
+
+  // product d reads buffer d % 2, which holds A_d; a buffer is advanced
+  // once the product two before has retired
+  for (int d = 0; d < n_dots; d += 2) {
+    if (d > 0) advance_two<K>(f0);
+    dot_product<M, K>(acc, f0, desc);
+    wgmma_wait<1>();  // product d - 1 has retired: buffer 1 is free
+    fence_regs(f1);
+    if (d + 1 == n_dots) break;
+    if (d > 0) advance_two<K>(f1);
+    dot_product<M, K>(acc, f1, desc);
+    wgmma_wait<1>();  // product d has retired: buffer 0 is free
+    fence_regs(f0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  __syncthreads();  // every warp has read the strip: out takes its place
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < M / 8; j++)
+#pragma unroll
+    for (int h = 0; h < 2; h++)
+#pragma unroll
+      for (int e = 0; e < 2; e++)
+        sm.out[8 * j + 2 * t + e][16 * warp + g + 8 * h] = acc[4 * j + 2 * h + e];
+  __syncthreads();
+  for (int j = tid; j < M * kDotCols / 4; j += kDotThreads) {
+    const int m = j / (kDotCols / 4), q = j % (kDotCols / 4);
+    *reinterpret_cast<float4*>(out + m * cols + c0 + 4 * q) =
+        *reinterpret_cast<const float4*>(&sm.out[m][4 * q]);
   }
 }
 
@@ -268,11 +422,15 @@ void launch_elem(const uint32_t* a, const uint32_t* b, uint32_t* out, long long 
 template <int M, int K>
 cudaError_t launch_dot(const __nv_bfloat16* a, const __nv_bfloat16* w, float* out,
                        int n_dots, long long cols, cudaStream_t stream) {
-  constexpr int bytes = dot_smem_bytes<M, K>();
-  cudaError_t err = cudaFuncSetAttribute(dot_kernel<M, K>,
+  constexpr int bytes = (int)sizeof(DotSmem<M, K>);
+  cudaError_t err = cudaFuncSetAttribute(dot_wgmma_kernel<M, K>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)  // as much shared memory as the SM has: three CTAs at (128, 128)
+    err = cudaFuncSetAttribute(dot_wgmma_kernel<M, K>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dot_kernel<M, K><<<(unsigned)(cols / kDotCols), M / 16 * 32, bytes, stream>>>(
+  dot_wgmma_kernel<M, K><<<(unsigned)(cols / kDotCols), kDotThreads, bytes, stream>>>(
       a, w, out, n_dots, cols);
   return cudaSuccess;
 }
@@ -301,7 +459,8 @@ int cspc_mb_elem(int op, const uint32_t* a, const uint32_t* b, uint32_t* out, lo
   return (int)cudaGetLastError();
 }
 
-// M6 for (m, k) = (64, 32) or (128, 128); cols a multiple of 64.
+// M6 for (m, k) = (64, 32) or (128, 128); cols a multiple of 64; a and w
+// 16-byte aligned.
 int cspc_mb_dot(int m, int k, const void* a, const void* w, float* out, int n_dots,
                 long long cols, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);

@@ -22,7 +22,11 @@ from . import microbench_plain as plain
 
 ILP_STREAMS = (4, 8)  # the stream counts the kernel is built for (the tool's ilp4, ilp8)
 DOT_SHAPES = ((64, 32), (128, 128))  # (M, K) the kernel is built for (dot64x32, dot128x128)
-DOT_COLS = 64  # the columns a CTA of M6 owns: C must be a multiple
+DOT_COLS = 64  # the columns a CTA of M6 owns (wgmma's 64 rows): C must be a multiple
+# M6's relative tolerance against its plain version (and between two builds
+# of it): n_dots x K = 2048 float32 roundings of at most 2^-24 each
+# (1.2e-4), times 2 for the order of the sums
+DOT_RTOL = 2.5e-4
 _OPS = {"mul": 0, "add": 1, "mix": 2, "ilp4": 3, "ilp8": 4, "conv": 5}  # cspc_mb_elem's op
 
 
@@ -87,7 +91,8 @@ def conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dot(a: torch.Tensor, w: torch.Tensor, n_dots: int) -> torch.Tensor:
     """M6: the sum of n_dots products W (M, K) @ A (K, C) in float32 from
     bfloat16, A = bf16(A + 1) after each.  The kernel takes (M, K) of
-    DOT_SHAPES and C a multiple of DOT_COLS."""
+    DOT_SHAPES, C a multiple of DOT_COLS, and A and W at 16-byte aligned
+    addresses (it copies them 16 bytes a thread)."""
     if a.device.type == "cpu":
         return plain.dot(a, w, n_dots)
     m, k = w.shape if w.ndim == 2 else (None, None)
@@ -102,6 +107,8 @@ def dot(a: torch.Tensor, w: torch.Tensor, n_dots: int) -> torch.Tensor:
         raise ValueError(f"dot: {n_dots} products")
     if not (a.is_contiguous() and w.is_contiguous()):
         raise ValueError("dot: A and W must be contiguous")
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("dot: A and W must start at 16-byte aligned addresses")
     out = torch.empty((m, cols), dtype=torch.float32, device=a.device)
     dev, stream = build.launch_args(a)
     err = build.load().cspc_mb_dot(m, k, _ptr(a), _ptr(w), _ptr(out), n_dots, cols, dev, stream)

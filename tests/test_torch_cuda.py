@@ -398,19 +398,28 @@ def test_microbench_kernels_match_plain(cuda):
         before = build.LAUNCHES[counter]
         assert torch.equal(kernel(ac, bc).cpu(), plain(a, b)), counter
         assert build.LAUNCHES[counter] == before + 1
+    # M6 on one strip of the kernel (DOT_COLS) and one tile of the tools,
+    # with 0 to 3 products (the edges of its two fragment buffers) and the
+    # tool's count; columns 0-5 start at 250-255, so they reach 256 and stay
     for m, k in MC.DOT_SHAPES:
-        n_dots = 64 * 32 // k
-        av = torch.from_numpy(rng.integers(0, 256, (k, MP.COLS)).astype(np.float32))
-        wv = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.float32))
-        av, wv = av.to(torch.bfloat16), wv.to(torch.bfloat16)
-        before = build.LAUNCHES["mb_dot"]
-        got = MC.dot(av.to(cuda), wv.to(cuda), n_dots).cpu()
-        want = MP.dot(av, wv, n_dots)
-        assert build.LAUNCHES["mb_dot"] == before + 1
-        assert got.shape == want.shape and bool(((got - want).abs() <= 2.5e-4 * want.abs()).all())
+        wv = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.float32)).to(torch.bfloat16)
+        for cols in (MC.DOT_COLS, MP.COLS):
+            arr = rng.integers(0, 256, (k, cols)).astype(np.float32)
+            arr[:, :6] = np.arange(250, 256)
+            av = torch.from_numpy(arr).to(torch.bfloat16)
+            for n_dots in (0, 1, 2, 3, 64 * 32 // k):
+                before = build.LAUNCHES["mb_dot"]
+                got = MC.dot(av.to(cuda), wv.to(cuda), n_dots).cpu()
+                want = MP.dot(av, wv, n_dots)
+                assert build.LAUNCHES["mb_dot"] == before + 1
+                assert got.shape == want.shape, (m, k, cols, n_dots)
+                assert bool(((got - want).abs() <= 2.5e-4 * want.abs()).all()), (m, k, cols, n_dots)
     with pytest.raises(ValueError):
         MC.ilp(ac, bc, 2)
     with pytest.raises(ValueError):  # a (16, 32) W is not one of the kernel's shapes
         MC.dot(av.to(cuda)[:32], wv.to(cuda)[:16, :32], 1)
+    with pytest.raises(ValueError):  # A not at a 16-byte aligned address
+        MC.dot(torch.zeros(32 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(32, 64),
+               wv.to(cuda)[:64, :32].contiguous(), 1)
     with pytest.raises(ValueError):
         MC.mul(ac.to(torch.int32), bc.to(torch.int32))

@@ -18,7 +18,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_tools_on_the_cpu():
+    # one torch thread a tool: the suite runs several workers at once, and a
+    # thread a core each oversubscribes the host (the plain M1 took 64 s
+    # under the suite's load against 2.7 s on an idle host, near the limit)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     for argv, labels in ((["tools_torch.microbench", "--device=cpu", "mul"], ["mul:"]),
                          (["tools_torch.microbench2", "--device=cpu", "conv", "dot64x32"],
                           ["u32<->f32 conv:", "dot (64,32):"])):

@@ -24,6 +24,9 @@ from __future__ import annotations
 
 import argparse
 import functools
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -31,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from codex_storage_proofs_circuits_tpu_torch.kernels import build
 from codex_storage_proofs_circuits_tpu_torch.kernels.timing import device_ms
 from codex_storage_proofs_circuits_tpu_torch.ops import microbench_cuda as MC
 from codex_storage_proofs_circuits_tpu_torch.ops.microbench_plain import COLS, REPS, ROWS, TILES
@@ -39,22 +43,39 @@ from codex_storage_proofs_circuits_tpu_torch.ops.microbench_plain import COLS, R
 # compute capability 9.0 (CUDA C++ Programming Guide, throughput of native
 # arithmetic instructions): 32-bit integer multiply and multiply-add
 # (IMAD) 64; 32-bit integer add, shift and logic 64 (LOP3 only on the
-# integer ALU; an add may also issue on the multiply pipe); type
-# conversions 16 (F2I; ptxas makes an int -> float conversion I2FP, which
-# issues faster).  The tensor cores: 989 TFLOP/s dense bf16 (NVIDIA H100
-# SXM data sheet).
-PEAK_PER_CLOCK = {"imad": 64, "alu": 64, "cvt": 16}
-TC_PEAK_FLOPS = 989e12
+# integer ALU; an add may also issue on the multiply pipe); both integer
+# pipes together 128; type conversions 16 (F2I; ptxas makes an int ->
+# float conversion I2FP, which issues faster).
+PEAK_PER_CLOCK = {"imad": 64, "alu": 64, "int": 128, "cvt": 16}
+# The tensor cores a clock: 4 an SM of 512 dense bf16 MACs (the data
+# sheet's 989 TFLOP/s is 132 SMs x 2048 MACs x 2 flops at 1830 MHz; their
+# peak is taken at the card's maximum SM clock, as the integer pipes').
+TC_MACS_PER_CLOCK = 2048
 TIMED_CALLS = 20  # calls a device_ms window
+
+# Integer instructions by the pipes that can issue them (compute capability
+# 9.0): products only the multiply pipe (IMAD, IMUL and their forms but
+# EITHER_PIPE); logic, LEA, funnel shifts, compares, selects and byte
+# permutes only the integer ALU (ALU_ONLY); adds, moves and shifts by a
+# constant either (IADD3 on the ALU, IMAD.IADD, IMAD.MOV and IMAD.SHL on
+# the multiply pipe).
+ALU_ONLY = ("LOP", "LEA", "SHF", "ISETP", "SEL", "PRMT", "IABS", "IMNMX", "BMSK", "BREV",
+            "FLO", "POPC")
+EITHER_PIPE = ("IADD3", "IMAD.IADD", "IMAD.MOV", "IMAD.SHL")
+# an instruction of a cuobjdump -sass listing: address, opcode, operands
+SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+MIX_KERNEL = "elem_kernelILi2E"  # M3's part of its mangled name in the SASS
 
 # name: (kernel, the JAX tool's ops an element for its Tops/s, the class of
 # the instructions that bound the kernel, their count an element).  M2 is
 # held by its xors, which only the integer ALU issues (its adds may issue
-# on the multiply pipe beside them), M3 by its 2 products a group.
+# on the multiply pipe beside them).  M3's class and count come from its
+# SASS (sass_bound): a group's 2 products and 13 adds, shifts and logic
+# ops are whatever ptxas makes of them.
 KERNELS = {
     "mul": (MC.mul, 2 * REPS, "imad", REPS),
     "add": (MC.add, 2 * REPS, "alu", REPS),
-    "mix": (MC.mix, REPS * 10 // 4, "imad", REPS // 2),
+    "mix": (MC.mix, REPS * 10 // 4, None, None),
 }
 
 
@@ -114,21 +135,56 @@ def per_clock(count: float, ms: float) -> float:
     return count / (ms * 1e-3) / (sms * max_sm_clock_hz())
 
 
-def run_elem(name: str, label: str, fn, tool_ops: int, cls: str, count: int, a, b,
-             unit: str) -> dict:
+def cuobjdump_sass(lib: str) -> str:
+    """The SASS listing of a built library (cuobjdump -sass)."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+
+
+def pipe_counts(ops: list[str]) -> dict:
+    """A SASS listing's integer instructions by the pipes that must issue
+    them: "imad" only the multiply pipe, "alu" only the integer ALU, "int"
+    all of them, the adds free to take either pipe (PEAK_PER_CLOCK)."""
+    either = sum(o.startswith(EITHER_PIPE) for o in ops)
+    imad = sum(o.startswith(("IMAD", "IMUL")) and not o.startswith(EITHER_PIPE) for o in ops)
+    alu = sum(o.startswith(ALU_ONLY) for o in ops)
+    return {"imad": imad, "alu": alu, "int": imad + alu + either}
+
+
+def sass_bound(part: str) -> tuple[str, int, dict]:
+    """The class and count of the instructions that bound the fully
+    unrolled kernel whose mangled name holds `part`, in the built library:
+    of its pipe_counts (a thread's, unrolled), the one that takes its pipes
+    longest.  Returns the class, the count and all pipe_counts."""
+    sass = cuobjdump_sass(os.path.join(build.build_dir(), build.LIB_NAME))
+    chunk = next(c for c in sass.split("Function : ")[1:] if part in c.split("\n", 1)[0])
+    pipes = pipe_counts([op for _, op, _ in SASS_OP.findall(chunk)])
+    cls = max(pipes, key=lambda c: pipes[c] / PEAK_PER_CLOCK[c])
+    return cls, pipes[cls], pipes
+
+
+def run_elem(name: str, label: str, fn, tool_ops: int, cls: str | None, count: int | None,
+             a, b, unit: str) -> dict:
     """Time fn(a, b) and print its line: the JAX tool's rate in `unit`
     (tool_ops an element) and, on the card, the rate an SM a clock of the
-    `count` instructions of class `cls` an element."""
+    `count` instructions of class `cls` an element (both None: M3's, from
+    its SASS)."""
     ms = time_ms(lambda: fn(a, b), a.device)
     n = a.numel()
-    res = {"name": name, "ms": ms, "device": a.device.type, "class": cls,
-           "count": count * n, "tool_rate": tool_ops * n / (ms * 1e-3) / 1e12}
+    res = {"name": name, "ms": ms, "device": a.device.type,
+           "tool_rate": tool_ops * n / (ms * 1e-3) / 1e12}
     if a.device.type == "cuda":
-        res["per_clock"] = per_clock(count * n, ms)
+        pipes = ""
+        if cls is None:
+            cls, count, res["pipes"] = sass_bound(MIX_KERNEL)
+            pipes = f"; its SASS an element: {res['pipes']}"
+        res.update({"class": cls, "count": count * n, "per_clock": per_clock(count * n, ms)})
         peak = PEAK_PER_CLOCK[cls]
-        print(f"{label}: {ms:.4f} ms (device) -> {res['tool_rate']:.3f} {unit}; {cls}"
+        print(f"{label}: {ms:.6f} ms (device) -> {res['tool_rate']:.3f} {unit}; {cls}"
               f" {res['per_clock']:.2f} a clock an SM (peak {peak},"
-              f" {100 * res['per_clock'] / peak:.1f} %)", flush=True)
+              f" {100 * res['per_clock'] / peak:.1f} %){pipes}", flush=True)
     else:
         print(f"{label}: {ms:.1f} ms (cpu: the plain version, host clock) ->"
               f" {res['tool_rate']:.6f} {unit}", flush=True)

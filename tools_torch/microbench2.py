@@ -20,9 +20,9 @@ then one line a kernel: its device time (kernels/timing.device_ms), the
 JAX tool's T elem-ops/s or T MAC/s and M dots/s (a dot is one product on
 a 512-column tile), and the rate beside its peak: for M4 and M5 the
 products or conversions an SM a clock at the card's maximum SM clock, for
-M6 TFLOP/s beside the bf16 tensor cores' 989.  --device=cpu runs the plain
-versions once each, timed on the host clock; without a card --device=cuda
-fails.
+M6 TFLOP/s and MACs an SM a clock beside the bf16 tensor cores' 2048 a
+clock.  --device=cpu runs the plain versions once each, timed on the host
+clock; without a card --device=cuda fails.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import torch
 from codex_storage_proofs_circuits_tpu_torch.ops import microbench_cuda as MC
 from codex_storage_proofs_circuits_tpu_torch.ops.microbench_plain import COLS, REPS2, TILES
 from tools_torch.microbench import (
-    TC_PEAK_FLOPS,
+    TC_MACS_PER_CLOCK,
     check_names,
     device_from_args,
     per_clock,
@@ -78,13 +78,14 @@ def run_dot(name: str, device: torch.device) -> dict:
     res = {"name": name, "ms": ms, "device": device.type, "class": "tc", "count": 2 * macs,
            "tool_rate": macs / s / 1e12, "tflops": 2 * macs / s / 1e12}
     where = "device" if device.type == "cuda" else "cpu: the plain version, host clock"
-    line = (f"dot ({m},{k}): {ms:.4f} ms ({where}) -> {res['tool_rate']:.3f} T MAC/s"
+    line = (f"dot ({m},{k}): {ms:.6f} ms ({where}) -> {res['tool_rate']:.3f} T MAC/s"
             f" ({dots / s / 1e6:.2f} M dots/s of ({m},{k})x({k},{COLS}))")
     if device.type == "cuda":
         res["per_clock"] = per_clock(macs, ms)
-        line += (f"; {res['tflops']:.2f} TFLOP/s (bf16 dense peak {TC_PEAK_FLOPS / 1e12:.0f},"
-                 f" {100 * res['tflops'] * 1e12 / TC_PEAK_FLOPS:.1f} %),"
-                 f" {res['per_clock']:.1f} MAC a clock an SM")
+        share = res["per_clock"] / TC_MACS_PER_CLOCK
+        line += (f"; {res['tflops']:.2f} TFLOP/s, {res['per_clock']:.1f} MAC a clock an SM"
+                 f" ({100 * share:.1f} % of the bf16 tensor cores' {TC_MACS_PER_CLOCK},"
+                 f" {res['tflops'] / share:.2f} TFLOP/s at the maximum SM clock)")
     print(line, flush=True)
     return res
 
