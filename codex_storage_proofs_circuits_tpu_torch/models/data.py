@@ -7,15 +7,27 @@ recurrence is sequential in the byte index but independent across cells, so
 it vectorizes across the cell axis: one numpy uint64 state vector stepped
 cell_size times.  (The scalar oracle in oracle/slot.py is the semantic
 anchor; tests check equality.)
+
+A file-backed slot is read by load_cells: a contiguous run of cells (a
+streaming chunk) in one positioned read, into page-locked memory where a
+CUDA device is present, and any other index list (sampled cells) a cell at
+a time.  Its other functions are copies of the JAX package's.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from ..oracle.slot import FAKE_MODULUS, SlotConfig
 
 _U64 = np.uint64
+
+# File read calls of load_cells, as kernels.build.LAUNCHES counts launches:
+# "bulk" reads of a run of cells, "cell" reads of one cell.
+FILE_READS = {"bulk": 0, "cell": 0}
 
 
 def gen_fake_cells(cell_size: int, seed: int, cell_indices) -> np.ndarray:
@@ -62,17 +74,57 @@ def load_slot_cells(cfg: SlotConfig) -> np.ndarray:
     return data.reshape(cfg.n_cells, cfg.cell_size)
 
 
+def _host_buffer(b: int, cell_size: int) -> np.ndarray:
+    """(b, cell_size) uint8 for a run of cells.  With a CUDA device it is a
+    view of page-locked memory from PyTorch's caching host allocator: the
+    copy to the card is then one DMA, and the block is pinned and faulted in
+    once and reused by later runs of the same size once this view is
+    released."""
+    if torch.cuda.is_available():
+        return torch.empty((b, cell_size), dtype=torch.uint8, pin_memory=True).numpy()
+    return np.empty((b, cell_size), dtype=np.uint8)
+
+
+def _read_run(filename: str, offset: int, out: np.ndarray) -> None:
+    """Fill out (C-contiguous) from the file's bytes at offset: one
+    positioned read, and another only after a short return."""
+    view = memoryview(out.reshape(-1))
+    fd = os.open(filename, os.O_RDONLY)
+    try:
+        got = 0
+        while got < len(view):
+            n = os.preadv(fd, [view[got:]], offset + got)
+            FILE_READS["bulk"] += 1
+            if n == 0:
+                raise EOFError("short read from slot file")
+            got += n
+    finally:
+        os.close(fd)
+
+
 def load_cells(cfg: SlotConfig, cell_indices) -> np.ndarray:
-    """Random-access batch of cells as (B, cell_size) uint8."""
+    """Random-access batch of cells as (B, cell_size) uint8.
+
+    From a file, indices that form one ascending run with step 1 are read
+    in one read (_read_run) into _host_buffer; any other list is read a
+    cell at a time.  A file too short raises EOFError.
+    """
     src = cfg.data_src
     idx = np.asarray(cell_indices, dtype=np.int64)
     if src.kind == "fake":
         return gen_fake_cells(cfg.cell_size, src.seed, idx)
-    out = np.empty((idx.shape[0], cfg.cell_size), dtype=np.uint8)
+    b = idx.shape[0]
+    if b and idx[0] + b - 1 == idx[-1] and np.all(np.diff(idx) == 1):
+        out = _host_buffer(b, cfg.cell_size)
+        _read_run(src.filename, cfg.cell_size * int(idx[0]), out)
+        return out
+    out = np.empty((b, cfg.cell_size), dtype=np.uint8)
     with open(src.filename, "rb") as f:
         for row, i in enumerate(idx):
             f.seek(cfg.cell_size * int(i))
             buf = f.read(cfg.cell_size)
-            assert len(buf) == cfg.cell_size, "short read from slot file"
+            FILE_READS["cell"] += 1
+            if len(buf) != cfg.cell_size:
+                raise EOFError("short read from slot file")
             out[row] = np.frombuffer(buf, dtype=np.uint8)
     return out

@@ -2,12 +2,14 @@
 oracle/, models/data.py, models/witness.py, utils/json_export.py,
 utils/circom.py, native/) against their originals: constants table for
 table, the oracle's permutations, sponges and Merkle roots on seeded
-inputs, the JSON and circom outputs byte for byte, models/data.py and the
-C sources of native/ byte for byte, and the C constants headers the port
+inputs, the JSON and circom outputs byte for byte, the C sources of native/
+and the functions of models/data.py byte for byte (load_cells, which the
+port rewrote, by its results), and the C constants headers the port
 generates from its fields/ against the JAX package's checked-in ones."""
 
 import _torch_threads  # noqa: F401  (one torch thread a test process)
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -114,12 +116,36 @@ def test_goldilocks_exports_equal(hash_fun, tmp_path):
 
 @pytest.mark.parametrize("path", ["native/cspc_native.c", "native/cspc_gl.c", "models/data.py"])
 def test_copied_sources_equal_byte_for_byte(path):
+    """The C sources whole; of models/data.py every function but load_cells,
+    which the port rewrote (it reads a run of file cells at once:
+    test_file_cells_equal and tests/test_torch_data_file.py)."""
+    if path == "models/data.py":
+        names = [n for n, v in vars(JD).items()
+                 if inspect.isfunction(v) and v.__module__ == JD.__name__ and n != "load_cells"]
+        assert names == ["gen_fake_cells", "load_slot_cells"]
+        for n in names:
+            assert inspect.getsource(getattr(TD, n)) == inspect.getsource(getattr(JD, n))
+        return
+
     def read(pkg):
         with open(os.path.join(REPO, pkg, path), "rb") as f:
             return f.read()
 
     assert read("codex_storage_proofs_circuits_tpu_torch") == read(
         "codex_storage_proofs_circuits_tpu")
+
+
+@pytest.mark.parametrize("idx", [np.arange(16), np.arange(5, 9), [3, 0, 14, 14]],
+                         ids=["whole", "run", "scattered"])
+def test_file_cells_equal(tmp_path, idx):
+    path = tmp_path / "slot.dat"
+    path.write_bytes(np.random.default_rng(4).integers(0, 256, 16 * 64, np.uint8).tobytes())
+    def cfg(slot):
+        return slot.SlotConfig(cell_size=64, block_size=256, n_cells=16, n_samples=1,
+                               data_src=slot.DataSource("file", filename=str(path)))
+
+    got, want = TD.load_cells(cfg(TSL), idx), JD.load_cells(cfg(JSL), idx)
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", sorted(TNB.HEADERS))
