@@ -7,10 +7,12 @@ sponge launch (kernel K6) digests every cell of a batch straight from its
 byte rows (the byte encode happens in the kernel), and the subtree kernel
 (K4 for Poseidon2-GL, K5 for Monolith) makes the Merkle layers above them,
 many layers a launch; the odd-width dataset tree (gl_tree_reduce_general)
-runs one keyed compression launch a layer.  Digest layers are (4, 4, W)
-int32 limb planes (lane, limb, node).  The felt entry points (sponge_digests,
-slot_tree_from_felts_gl) are the JAX package's API, kept for the parity
-tests.
+runs one keyed compression launch a layer.  The proof inputs' sampler
+(sample_indices_gl) is one sponge launch (K6's felts entry) for every
+counter, shared by the single-device and the sharded proof inputs.
+Digest layers are (4, 4, W) int32 limb planes (lane, limb, node).  The
+felt entry points (sponge_digests, slot_tree_from_felts_gl) are the JAX
+package's API, kept for the parity tests.
 
 The JAX twin's TPU machinery is not carried over: the Pallas tile minimum
 (_PALLAS_MIN_BATCH) and the lane padding up to it; the kernels take any
@@ -22,12 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..oracle.goldilocks import ZERO_DIGEST
+from ..oracle.goldilocks import ZERO_DIGEST, Digest
 from ..oracle.goldilocks import compress as gl_compress
 from ..oracle.merkle import MerkleTree
 from ..oracle.slot import SlotConfig, SlotTree
 from ..ops import gl_encode
 from ..ops import goldilocks_cuda as GC
+from ..ops import goldilocks_plain as GP
 from . import data as D
 
 NL = 4  # 16-bit limbs per felt
@@ -126,12 +129,38 @@ def slot_tree_from_felts_gl(
 
 
 def digests(layer: torch.Tensor) -> list[tuple[int, ...]]:
-    """(4, 4, W) limb planes -> W Digest tuples of python ints."""
+    """(4, 4, W) limb planes -> W Digest tuples of python ints.  Four
+    lists and W tuples, no list a digest: the collector stops tracking a
+    tuple of ints, so a proof's digests leave it no long-lived objects."""
     arr = layer.detach().cpu().numpy().astype(np.uint64)
     vals = arr[:, 0]
     for k in range(1, NL):
         vals = vals | (arr[:, k] << np.uint64(16 * k))
-    return [tuple(int(v) for v in col) for col in vals.T]
+    return list(zip(*vals.tolist()))
+
+
+def digest_planes(d: Digest, device) -> torch.Tensor:
+    """A Digest -> (4 felts, 4 limbs, 1) planes."""
+    return GP.pack(d, device).T.unsqueeze(-1).contiguous()
+
+
+def sample_indices_gl(hash_fun: str, entropy: Digest, root: torch.Tensor, n_samples: int,
+                      log2n: int) -> torch.Tensor:
+    """Goldilocks cell indices of counters 1..n_samples, on the root's
+    device: the low log2n bits of lane 0 of the rate-8 digest of
+    [entropy | root | intToDigest(counter)] (sample/goldilocks.nim:18-38).
+    root: (4, 4, 1) canonical digest."""
+    if log2n > 32:
+        raise ValueError(f"log2 nCells {log2n} > 32")
+    dev, s = root.device, n_samples
+    felts = torch.cat([
+        digest_planes(entropy, dev).expand(4, GP.NL, s),
+        root.expand(4, GP.NL, s),
+        GP.pack(range(1, s + 1), dev).unsqueeze(0),
+        torch.zeros((3, GP.NL, s), dtype=torch.int32, device=dev),
+    ])  # (12, 4, S)
+    h = sponge_digests(hash_fun, felts).to(torch.int64)
+    return (h[0, 0] | (h[0, 1] << 16)) & ((1 << log2n) - 1)
 
 
 def build_slot_trees_gl(hash_fun: str, cfgs: list[SlotConfig], device) -> list[SlotTree]:

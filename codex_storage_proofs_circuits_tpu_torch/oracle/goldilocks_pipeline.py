@@ -154,8 +154,11 @@ def check_proof_input_gl(hash_fun: str, glob: GlobalConfig, pi: ProofInputGL) ->
 # (json/goldilocks.nim:19-25,70-87, digestToJsonString types/goldilocks.nim:40-46).
 
 
-def _dj(d: Digest) -> list[str]:
-    return [str(v) for v in d]
+def _dj(d: Digest) -> tuple[str, ...]:
+    # A tuple, which json writes as a list: the collector stops tracking a
+    # tuple of strings, so an export's ~10,000 quads do not add up towards
+    # a full collection.
+    return tuple([str(v) for v in d])
 
 
 def proof_input_gl_to_dict(pi: ProofInputGL) -> dict:

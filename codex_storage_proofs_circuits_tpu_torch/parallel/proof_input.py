@@ -9,7 +9,8 @@ parallel/gl_tree.py):
     first independent of the counter, so it runs once and one batched
     permutation spans the counters (K1); Goldilocks digests
     [entropy | root | intToDigest(counter)] in one batched sponge (K6's
-    felts entry);
+    felts entry; models/gl_hashing.sample_indices_gl, which the
+    single-device GL proof input shares);
   * the Merkle paths gather from the sharded layers: at each depth the
     shard that owns a sampled index's sibling answers for it, and only the
     nSamples x maxDepth nodes come back (across processes by one
@@ -30,8 +31,6 @@ from ..fields import bn254
 from ..models import data as D
 from ..models import gl_hashing as GH
 from ..models import hashing as H
-from ..ops import goldilocks_cuda as GC
-from ..ops import goldilocks_plain as GP
 from ..ops import limbs as L
 from ..ops import poseidon2_plain as P2
 from ..oracle.dataset import DataSetConfig, GlobalConfig, slot_cfg_from_dataset_cfg
@@ -67,30 +66,6 @@ def sample_indices(entropy: int, root: torch.Tensor, n_samples: int, log2n: int)
     y = L.add_mod(st1[1], one).expand(NL, s)
     h = L.from_mont(H.permute(torch.stack([x, y, st1[2].expand(NL, s)]))[0]).to(torch.int64)
     return (h[0] | (h[1] << 16)) & ((1 << log2n) - 1)
-
-
-def _digest_planes(d: Digest, device) -> torch.Tensor:
-    """A Digest -> (4 felts, 4 limbs, 1) planes."""
-    return GP.pack(d, device).T.unsqueeze(-1).contiguous()
-
-
-def sample_indices_gl(hash_fun: str, entropy: Digest, root: torch.Tensor, n_samples: int,
-                      log2n: int) -> torch.Tensor:
-    """Goldilocks cell indices of counters 1..n_samples, on the root's
-    device: the low log2n bits of lane 0 of the rate-8 digest of
-    [entropy | root | intToDigest(counter)] (sample/goldilocks.nim:18-38).
-    root: (4, 4, 1) canonical digest."""
-    if log2n > 32:
-        raise ValueError(f"log2 nCells {log2n} > 32")
-    dev, s = root.device, n_samples
-    felts = torch.cat([
-        _digest_planes(entropy, dev).expand(4, GP.NL, s),
-        root.expand(4, GP.NL, s),
-        GP.pack(range(1, s + 1), dev).unsqueeze(0),
-        torch.zeros((3, GP.NL, s), dtype=torch.int32, device=dev),
-    ])  # (12, 4, S)
-    h = GC.sponge_digest_felts(felts, hash_fun).to(torch.int64)
-    return (h[0, 0] | (h[0, 1] << 16)) & ((1 << log2n) - 1)
 
 
 def _sample_and_gather(mesh: Mesh, slot: int, locs, tops, sample, node: tuple[int, ...],
@@ -186,7 +161,7 @@ def sharded_gl_proof_input(hash_fun: str, glob: GlobalConfig, dset: DataSetConfi
     log2n = (dset.n_cells - 1).bit_length()
     idxs, root, paths = _sample_and_gather(
         mesh, slot_index, locs, tops,
-        lambda r: sample_indices_gl(hash_fun, entropy, r, dset.n_samples, log2n),
+        lambda r: GH.sample_indices_gl(hash_fun, entropy, r, dset.n_samples, log2n),
         (GH.FELTS_PER_DIGEST, GH.NL), dset.n_samples, glob.max_depth)
     per_depth = [GH.digests(paths[d]) for d in range(glob.max_depth)]
     return ProofInputGL(

@@ -156,8 +156,9 @@ def generate(glob, dset, slot_index: int, entropy: int, device, verbose: bool = 
 
 
 def generate_gl(hash_fun: str, glob, dset, slot_index: int, entropy: int, device,
-                verbose: bool = False):
-    """The Goldilocks proof input on `device` (entropy as intToDigest)."""
+                verbose: bool = False, stats=None):
+    """The Goldilocks proof input on `device` (entropy as intToDigest).
+    stats: a models.gl_proof_input.ProofStatsGL that adds up the stages."""
     from ..models import gl_proof_input as GPI
     from ..oracle.goldilocks import int_to_digest
 
@@ -165,8 +166,8 @@ def generate_gl(hash_fun: str, glob, dset, slot_index: int, entropy: int, device
     if _streams(glob, dset):
         if verbose:
             print(f"streaming build ({glob.cell_size * dset.n_cells >> 20} MB/slot)")
-        return GPI.generate_proof_input_gl_streaming(*args, device=device)
-    return GPI.generate_proof_input_gl(*args, device=device)
+        return GPI.generate_proof_input_gl_streaming(*args, device=device, stats=stats)
+    return GPI.generate_proof_input_gl(*args, device=device, stats=stats)
 
 
 def main(argv=None) -> int:

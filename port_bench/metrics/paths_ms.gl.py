@@ -1,0 +1,11 @@
+"""paths_ms.gl: the GL proof input's paths stage: the sampled paths, to their
+digests on the host (models/gl_proof_input.ProofStatsGL.paths_s, the
+program's host clock), in ms a request over the traced window.  Nothing
+where the program keeps no such stats."""
+
+
+def read(rec: dict):
+    stats = rec.get("proof_gl")
+    if not stats or not rec.get("proofs"):
+        return None
+    return 1e3 * stats["paths_s"] / rec["proofs"]
