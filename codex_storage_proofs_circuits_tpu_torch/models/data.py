@@ -9,14 +9,20 @@ cell_size times.  (The scalar oracle in oracle/slot.py is the semantic
 anchor; tests check equality.)
 
 A file-backed slot is read by load_cells: a contiguous run of cells (a
-streaming chunk) in one positioned read, into page-locked memory where a
-CUDA device is present, and any other index list (sampled cells) a cell at
-a time.  Its other functions are copies of the JAX package's.
+streaming chunk) into one block, page-locked where a CUDA device is
+present, and any other index list (sampled cells) a cell at a time.  A run
+of at least two MIN_PART_BYTES parts is split into up to one disjoint part
+a usable core, each a positioned read (os.preadv, which releases the GIL)
+on a thread of a pool made at the first such run: copying out of the page
+cache is bound by the core that does it.  Its other functions are copies of
+the JAX package's.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -25,9 +31,17 @@ from ..oracle.slot import FAKE_MODULUS, SlotConfig
 
 _U64 = np.uint64
 
-# File read calls of load_cells, as kernels.build.LAUNCHES counts launches:
-# "bulk" reads of a run of cells, "cell" reads of one cell.
-FILE_READS = {"bulk": 0, "cell": 0}
+# File reads of load_cells, as kernels.build.LAUNCHES counts launches:
+# "bulk" runs of cells read (one a run, however it is split), "cell" reads
+# of one cell, "part" the positioned reads of the runs (short returns
+# included).
+FILE_READS = {"bulk": 0, "cell": 0, "part": 0}
+
+MIN_PART_BYTES = 16 << 20  # a run splits into parts of at least this size
+MAX_PARTS = 8
+
+_pool: ThreadPoolExecutor | None = None
+_pool_lock = threading.Lock()
 
 
 def gen_fake_cells(cell_size: int, seed: int, cell_indices) -> np.ndarray:
@@ -85,29 +99,64 @@ def _host_buffer(b: int, cell_size: int) -> np.ndarray:
     return np.empty((b, cell_size), dtype=np.uint8)
 
 
+def _read_part(fd: int, view: memoryview, offset: int) -> int:
+    """Fill view from the file's bytes at offset: one positioned read, and
+    another only after a short return.  Returns the reads made."""
+    got = reads = 0
+    while got < len(view):
+        n = os.preadv(fd, [view[got:]], offset + got)
+        reads += 1
+        if n == 0:
+            raise EOFError("short read from slot file")
+        got += n
+    return reads
+
+
+def _n_parts(n_bytes: int) -> int:
+    return max(1, min(len(os.sched_getaffinity(0)), MAX_PARTS, n_bytes // MIN_PART_BYTES))
+
+
+def _read_pool() -> ThreadPoolExecutor:
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(MAX_PARTS, thread_name_prefix="cspc-read")
+        return _pool
+
+
 def _read_run(filename: str, offset: int, out: np.ndarray) -> None:
-    """Fill out (C-contiguous) from the file's bytes at offset: one
-    positioned read, and another only after a short return."""
+    """Fill out (C-contiguous) from the file's bytes at offset.  Split into
+    _n_parts disjoint parts, read at once on the pool's threads (one part:
+    in this thread); returns when every part is complete, and raises the
+    first part's error."""
     view = memoryview(out.reshape(-1))
+    n_parts = _n_parts(len(view))
+    cuts = [len(view) * k // n_parts for k in range(n_parts + 1)]
     fd = os.open(filename, os.O_RDONLY)
     try:
-        got = 0
-        while got < len(view):
-            n = os.preadv(fd, [view[got:]], offset + got)
-            FILE_READS["bulk"] += 1
-            if n == 0:
-                raise EOFError("short read from slot file")
-            got += n
+        if n_parts == 1:
+            reads = _read_part(fd, view, offset)
+        else:
+            pool, parts = _read_pool(), []
+            try:
+                for a, b in zip(cuts, cuts[1:]):
+                    parts.append(pool.submit(_read_part, fd, view[a:b], offset + a))
+            finally:
+                wait(parts)  # no part may still write into out or read fd
+            reads = sum(p.result() for p in parts)
     finally:
         os.close(fd)
+    FILE_READS["bulk"] += 1
+    FILE_READS["part"] += reads
 
 
 def load_cells(cfg: SlotConfig, cell_indices) -> np.ndarray:
     """Random-access batch of cells as (B, cell_size) uint8.
 
     From a file, indices that form one ascending run with step 1 are read
-    in one read (_read_run) into _host_buffer; any other list is read a
-    cell at a time.  A file too short raises EOFError.
+    into _host_buffer by _read_run, in parallel parts once the run is large
+    enough; any other list is read a cell at a time.  A file too short
+    raises EOFError.
     """
     src = cfg.data_src
     idx = np.asarray(cell_indices, dtype=np.int64)

@@ -14,9 +14,9 @@ byte rows -> the cell hashes, straight from the rows (K2 for BN254, K6 for
 Goldilocks: the byte encode, and for BN254 the Montgomery form, happen in
 the kernel) -> the tree, by the subtree kernels (K1 for BN254; K4 for
 Poseidon2-GL, K5 for Monolith: two launches a Goldilocks chunk).
-File-backed data is read on the host, a chunk in one read into page-locked
-memory (models/data.load_cells), crosses per chunk in one synchronous copy
-and is read in place as a (B, cell_size).T view.
+File-backed data is read on the host, a chunk in parallel positioned reads
+into one page-locked block (models/data.load_cells), crosses per chunk in
+one synchronous copy and is read in place as a (B, cell_size).T view.
 
 A BN254 chunk's layers stop at CHUNK_STOP_WIDTH nodes (one launch
 of K1), and the joined frontier of all the chunks goes to the slot root in
@@ -141,9 +141,10 @@ class StreamingStats:
     the device falls in finalize_s.  With a checkpoint, loaded counts the
     chunks read back (also counted in chunks), and save_s / load_s the
     seconds spent writing and reading chunk files (a save waits for its
-    chunk's layers).  file_reads counts the read calls of file-backed
-    chunks (models/data.FILE_READS); on file data datagen_s is their read
-    and the copy to the device, both synchronous."""
+    chunk's layers).  file_reads counts the reads of file-backed chunks
+    (models/data.FILE_READS "bulk" and "cell": one a chunk), read_parts
+    the positioned reads they were split into ("part"); on file data
+    datagen_s is their read and the copy to the device, both synchronous."""
 
     datagen_s: float = 0.0
     device_s: float = 0.0
@@ -154,6 +155,7 @@ class StreamingStats:
     save_s: float = 0.0
     load_s: float = 0.0
     file_reads: int = 0
+    read_parts: int = 0
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
@@ -165,9 +167,10 @@ def _chunk_layers(cfg: SlotConfig, start: int, chunk_cells: int, device, st, tre
         s1, s2 = fake_seed_bases(cfg.data_src.seed, start, device)
         rows = gen_rows(s1, s2, cfg.cell_size, chunk_cells)  # (cell_size, B) u8
     else:
-        reads = sum(D.FILE_READS.values())
+        reads, parts = D.FILE_READS["bulk"] + D.FILE_READS["cell"], D.FILE_READS["part"]
         cells = D.load_cells(cfg, np.arange(start, start + chunk_cells))
-        st.file_reads += sum(D.FILE_READS.values()) - reads
+        st.file_reads += D.FILE_READS["bulk"] + D.FILE_READS["cell"] - reads
+        st.read_parts += D.FILE_READS["part"] - parts
         # synchronous: the next chunk's read may reuse the host block
         rows = torch.from_numpy(cells).to(device).T
     t1 = time.perf_counter()
