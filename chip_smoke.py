@@ -36,8 +36,9 @@ Phases:
   5. BN254: the port CLI on two 1 GB fake-data slots (2^19 cells of 2048
      bytes), the streaming path, checked on the host: cell hashes, Merkle
      paths, the dataset proof, the witness evaluator, and the kernels'
-     launch counts from that run (K1's subtree kernel at most 8 times, no
-     one-layer K1 launch, no plain Montgomery pass over the layers); then
+     launch counts from that run (K1's subtree kernel at most 8 times, the
+     one-layer K1 launch only twice, the sampler's, and no plain Montgomery
+     pass but the sampler's one over its nSamples hashes); then
      one warm 1 GB slot-root build, timed, and one under torch.profiler
      (device time by kernel, idle share);
   6. Goldilocks, both hashes: the port CLI on a small dataset (5 slots x
@@ -607,10 +608,11 @@ def reset_launches() -> None:
         build.LAUNCHES[k] = 0
 
 
-def check_launches(path: str) -> dict:
-    """The counts since reset_launches(): every kernel of the path launched,
-    and nothing else (no kernel of another path, no limb-plane entry)."""
-    launches = check_only(path, PATH_COUNTERS[path])
+def check_launches(path: str, also: tuple[str, ...] = ()) -> dict:
+    """The counts since reset_launches(): every kernel of the path and of
+    `also` launched, and nothing else (no kernel of another path, no
+    limb-plane entry)."""
+    launches = check_only(path, (*PATH_COUNTERS[path], *also))
     trees = [k for k, cap in MAX_TREE_LAUNCHES.items() if launches.get(k, 0) > cap]
     if trees:
         raise AssertionError(f"{path}: more tree launches than {MAX_TREE_LAUNCHES}: {trees}")
@@ -637,16 +639,20 @@ def phase_full(tmp: str) -> tuple[dict, dict]:
     glob, dset = cli.configs_from_args(args)
 
     reset_launches()
-    plain_passes = []
+    plain_passes, sampler_passes = [], []
     from_mont = L.from_mont
 
     def counted_from_mont(a):
         # every plain Montgomery-to-canonical pass (limbs.from_mont, which
         # models/hashing.py::from_mont_layers also runs), by its caller; the
         # circuit checker's pass over the sampled indices (--check) is not
-        # the tree's
+        # the tree's, and the sampler's over its (NL, nSamples) hashes
+        # (models/hashing.py::sample_indices) is counted apart
         caller = sys._getframe(1).f_code
-        if not caller.co_filename.endswith(os.path.join("models", "circuit.py")):
+        if (caller.co_filename.endswith(os.path.join("models", "hashing.py"))
+                and caller.co_name == "sample_indices"):
+            sampler_passes.append(tuple(a.shape))
+        elif not caller.co_filename.endswith(os.path.join("models", "circuit.py")):
             plain_passes.append(f"{caller.co_filename}:{caller.co_name} {tuple(a.shape)}")
         return from_mont(a)
 
@@ -659,10 +665,16 @@ def phase_full(tmp: str) -> tuple[dict, dict]:
         wall = time.perf_counter() - t0
     finally:
         L.from_mont = from_mont
-    launches = check_launches("bn254")
+    launches = check_launches("bn254", also=("perm",))  # perm: the sampler's two
+    if launches["perm"] != 2:
+        raise AssertionError(f"bn254: {launches['perm']} perm launches, not the sampler's 2")
     if plain_passes:
         raise AssertionError(f"a plain Montgomery pass ran on the BN254 path: {plain_passes}")
-    log(f"  2 x 1 GB proof input: {wall:.2f} s, launches {launches}, no plain Montgomery pass")
+    if sampler_passes != [(L.NL, dset.n_samples)]:
+        raise AssertionError(f"bn254: the sampler's plain passes {sampler_passes}, not one over"
+                             f" its {(L.NL, dset.n_samples)} hashes")
+    log(f"  2 x 1 GB proof input: {wall:.2f} s, launches {launches}, no plain Montgomery pass"
+        f" but the sampler's over its {sampler_passes[0]} hashes")
 
     pi = load_proof_input(out)
     cfg = slot_cfg_from_dataset_cfg(glob, dset, pi.slot_index)

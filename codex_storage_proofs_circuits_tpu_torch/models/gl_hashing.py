@@ -7,9 +7,14 @@ sponge launch (kernel K6) digests every cell of a batch straight from its
 byte rows (the byte encode happens in the kernel), and the subtree kernel
 (K4 for Poseidon2-GL, K5 for Monolith) makes the Merkle layers above them,
 many layers a launch; the odd-width dataset tree (gl_tree_reduce_general)
-runs one keyed compression launch a layer.  The proof inputs' sampler
-(sample_indices_gl) is one sponge launch (K6's felts entry) for every
-counter, shared by the single-device and the sharded proof inputs.
+runs one keyed compression launch a layer.  The proof inputs' pieces:
+batched_slot_layers_gl, the flat layer stacks of small slots built in one
+batch (the twin of models/streaming.streaming_slot_layers_gl for large
+ones); sample_indices_gl, the cell sampler (one sponge launch, K6's felts
+entry, for every counter), which every GL proof input calls; cell_digests,
+the sampled cells' felts encoded on the device; and paths_to_host_gl, the
+one conversion to the host of the paths that models/hashing.py's
+extract_paths_device gathers on the device for either field.
 Digest layers are (4, 4, W) int32 limb planes (lane, limb, node).  The
 felt entry points (sponge_digests, slot_tree_from_felts_gl) are the JAX
 package's API, kept for the parity tests.
@@ -24,14 +29,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..oracle.goldilocks import ZERO_DIGEST, Digest
-from ..oracle.goldilocks import compress as gl_compress
-from ..oracle.merkle import MerkleTree
-from ..oracle.slot import SlotConfig, SlotTree
+from ..oracle.goldilocks import Digest
+from ..oracle.slot import SlotConfig
 from ..ops import gl_encode
 from ..ops import goldilocks_cuda as GC
 from ..ops import goldilocks_plain as GP
-from . import data as D
+from . import hashing as H
 
 NL = 4  # 16-bit limbs per felt
 FELTS_PER_DIGEST = 4
@@ -163,54 +166,38 @@ def sample_indices_gl(hash_fun: str, entropy: Digest, root: torch.Tensor, n_samp
     return (h[0, 0] | (h[0, 1] << 16)) & ((1 << log2n) - 1)
 
 
-def build_slot_trees_gl(hash_fun: str, cfgs: list[SlotConfig], device) -> list[SlotTree]:
-    """GL slot trees of identically shaped slots in one device batch,
-    returned as oracle SlotTree objects (block mini-trees + big tree) so
-    that the oracle's path extraction applies as it is."""
-    if not cfgs:
-        raise ValueError("build_slot_trees_gl: no slots")
-    cfg0 = cfgs[0]
-    shape0 = (cfg0.cell_size, cfg0.block_size, cfg0.n_cells)
-    if any((c.cell_size, c.block_size, c.n_cells) != shape0 for c in cfgs):
-        raise ValueError("build_slot_trees_gl: slots must be identically shaped")
-    btd = cfg0.cells_per_block.bit_length() - 1
-    n_slots = len(cfgs)
-    cells = np.concatenate([D.load_slot_cells(c) for c in cfgs], axis=0)
-    rows = torch.from_numpy(cells).to(device).T  # (cell_size, S * n_cells), read in place
-    layers = slot_tree_from_rows_gl(hash_fun, rows, btd, n_slots)
-    flat = [digests(lyr) for lyr in layers]
-
-    k = cfg0.cells_per_block
-    n_blocks = cfg0.n_cells // k
-    trees = []
-    for s in range(n_slots):
-        per = [lyr[s * len(lyr) // n_slots : (s + 1) * len(lyr) // n_slots] for lyr in flat]
-        minis = [
-            MerkleTree([per[d][bi * (k >> d) : (bi + 1) * (k >> d)] for d in range(btd + 1)])
-            for bi in range(n_blocks)
-        ]
-        big_layers = per[btd:]
-        if n_blocks == 1:
-            # singleton big tree: one bottom-odd compression on top
-            big_layers = [big_layers[0], [gl_compress(hash_fun, 3, big_layers[0][0], ZERO_DIGEST)]]
-        trees.append(SlotTree(minis, MerkleTree(big_layers)))
-    return trees
+def batched_slot_layers_gl(hash_fun: str, cfgs: list[SlotConfig], device
+                           ) -> list[list[torch.Tensor]]:
+    """The flat digest layer stacks (cell digests first, the slot root
+    last) of identically shaped slots, built in one batch: every cell of
+    every slot is loaded on the host first, so this is for small slots.
+    Each slot's stack is slices of the batch's layers.  A single-block
+    slot's stack ends in one more layer of width 1, the bottom-odd
+    compression of its one block root (gl_tree_reduce_general)."""
+    rows = H.slot_rows(cfgs, device)
+    n, cfg0 = len(cfgs), cfgs[0]
+    layers = slot_tree_from_rows_gl(hash_fun, rows, cfg0.cells_per_block.bit_length() - 1, n)
+    stacks = [list(st) for st in zip(*(lyr.tensor_split(n, dim=2) for lyr in layers))]
+    if cfg0.n_cells == cfg0.cells_per_block:
+        for st in stacks:
+            st.append(gl_tree_reduce_general(st[-1], hash_fun)[-1])
+    return stacks
 
 
-def extract_gl_paths_device(
-    layers: list[torch.Tensor], indices: torch.Tensor, max_depth: int
-) -> torch.Tensor:
-    """Batched GL Merkle-path gather from a flat digest layer stack.
+def cell_digests(cells: np.ndarray, device) -> list[list[Digest]]:
+    """(B, cell_size) cell bytes -> each cell's felts as digests
+    (oracle.goldilocks.bytes_to_digests_gl), encoded on the device
+    (ops/gl_encode) and brought to the host in one copy."""
+    felts = encode_cells_gl(cells, device)  # (nfelts, 4, B)
+    nd, b = felts.shape[0] // FELTS_PER_DIGEST, felts.shape[2]
+    cols = felts.reshape(nd, FELTS_PER_DIGEST, NL, b).permute(1, 2, 3, 0)
+    flat = digests(cols.reshape(FELTS_PER_DIGEST, NL, b * nd))  # cell-major
+    return [flat[k * nd:(k + 1) * nd] for k in range(b)]
 
-    layers[d]: (4, 4, W >> d) with W a power of two; indices: (S,) leaf
-    indices.  Returns (max_depth, 4, 4, S) sibling digests, zero beyond the
-    tree depth.
-    """
-    s = indices.shape[0]
-    depth = len(layers) - 1
-    idx = indices.to(layers[0].device, torch.int64)
-    out = layers[0].new_zeros((max_depth, FELTS_PER_DIGEST, NL, s))
-    for d in range(min(depth, max_depth)):
-        if layers[d].shape[2] > 1:
-            out[d] = layers[d].index_select(2, (idx >> d) ^ 1)
-    return out
+
+def paths_to_host_gl(paths: torch.Tensor) -> list[list[Digest]]:
+    """(max_depth, 4, 4, S) gathered sibling digests -> S paths of
+    max_depth Digests, in one copy and one digests call."""
+    depth, s = paths.shape[0], paths.shape[3]
+    flat = digests(paths.permute(1, 2, 3, 0).reshape(FELTS_PER_DIGEST, NL, s * depth))
+    return [flat[k * depth:(k + 1) * depth] for k in range(s)]

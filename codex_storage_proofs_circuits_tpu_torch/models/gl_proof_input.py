@@ -14,9 +14,14 @@ After the slot roots:
     (gl_hashing.sample_indices_gl, shared with the sharded proof input),
     and the indices come back in one copy;
   * the sampled cells' bytes come from one models/data.load_cells call,
-    and their felts from one encode on the device (ops/gl_encode);
-  * the sampled paths come from the slot's layers (one gather on the device
-    in the streaming path, the oracle's trees in the batched one).
+    and their felts from one encode on the device (gl_hashing.cell_digests);
+  * the sampled paths are one gather from the sampled slot's flat layer
+    stack on the device, brought to the host in one copy
+    (gl_hashing.paths_to_host_gl).
+
+Both routes, the batched build of small slots
+(gl_hashing.batched_slot_layers_gl) and the streaming build of large ones
+(models/streaming.py), end in the one tail, _proof_input_gl.
 
 Each of the four stages runs in a torch.profiler span, cspc.proof_gl.slots,
 .sample, .cells and .paths; a ProofStatsGL, when given, adds up their
@@ -38,6 +43,7 @@ from ..oracle.goldilocks_pipeline import ProofInputGL, _pad_digest_path
 from ..oracle.merkle import extract_proof, merkle_tree
 from . import data as D
 from . import gl_hashing as GH
+from . import hashing as H
 from .streaming import DEFAULT_CHUNK_CELLS, streaming_slot_layers_gl
 
 SPAN = "cspc.proof_gl."
@@ -77,35 +83,24 @@ def _stage(stats: ProofStatsGL | None, name: str):
         setattr(stats, key, getattr(stats, key) + time.perf_counter() - t0)
 
 
-def _cell_digests(cells: np.ndarray, device) -> list[list[Digest]]:
-    """(B, cell_size) cell bytes -> each cell's felts as digests
-    (oracle.goldilocks.bytes_to_digests_gl), encoded on the device
-    (ops/gl_encode) and brought to the host in one copy."""
-    felts = GH.encode_cells_gl(cells, device)  # (nfelts, 4, B)
-    nd, b = felts.shape[0] // GH.FELTS_PER_DIGEST, felts.shape[2]
-    cols = felts.reshape(nd, GH.FELTS_PER_DIGEST, GH.NL, b).permute(1, 2, 3, 0)
-    flat = GH.digests(cols.reshape(GH.FELTS_PER_DIGEST, GH.NL, b * nd))  # cell-major
-    return [flat[k * nd:(k + 1) * nd] for k in range(b)]
-
-
 def _proof_input_gl(hash_fun, glob, dset, slot_index, entropy, build_slots, device, stats):
-    """The shared tail: dataset tree, sampling, cell data, paths.
+    """The tail: the dataset tree, sampling, the cells and the paths.
     build_slots() builds every slot's tree and returns the slot roots
-    (Digests) and merkle_paths_of(idxs)."""
+    (Digests) and the sampled slot's layer stack; it runs in the slots
+    stage, with the dataset tree."""
     with _stage(stats, "slots"):
-        roots, merkle_paths_of = build_slots()
+        roots, stack = build_slots()
         dset_tree = merkle_tree(roots, compress_fn(hash_fun))
         slot_proof = extract_proof(dset_tree, slot_index)
-    our_root = roots[slot_index]
     with _stage(stats, "sample"):
-        root = GH.digest_planes(our_root, device)
-        idxs = GH.sample_indices_gl(hash_fun, entropy, root, dset.n_samples,
+        idxs = GH.sample_indices_gl(hash_fun, entropy, stack[-1], dset.n_samples,
                                     (dset.n_cells - 1).bit_length()).tolist()
     with _stage(stats, "cells"):
         cells = D.load_cells(slot_cfg_from_dataset_cfg(glob, dset, slot_index), np.asarray(idxs))
-        cell_data = _cell_digests(cells, device)
+        cell_data = GH.cell_digests(cells, device)
     with _stage(stats, "paths"):
-        merkle_paths = merkle_paths_of(idxs)
+        merkle_paths = GH.paths_to_host_gl(H.extract_paths_device(
+            stack, torch.tensor(idxs, dtype=torch.int64), glob.max_depth))
     if stats is not None:
         stats.samples += len(idxs)
         stats.cell_loads += 1
@@ -114,7 +109,7 @@ def _proof_input_gl(hash_fun, glob, dset, slot_index, entropy, build_slots, devi
         entropy=entropy,
         data_set_root=dset_tree.root,
         slot_index=slot_index,
-        slot_root=our_root,
+        slot_root=roots[slot_index],
         n_slots_per_dataset=dset.n_slots,
         n_cells_per_slot=dset.n_cells,
         slot_proof=_pad_digest_path(slot_proof.merkle_path, glob.max_log2_n_slots),
@@ -137,20 +132,8 @@ def generate_proof_input_gl(
 
     def build_slots():
         slot_cfgs = [slot_cfg_from_dataset_cfg(glob, dset, i) for i in range(dset.n_slots)]
-        trees = GH.build_slot_trees_gl(hash_fun, slot_cfgs, device)
-        our_tree = trees[slot_index]
-        k = slot_cfgs[slot_index].cells_per_block
-
-        def merkle_paths_of(idxs):
-            paths = []
-            for idx in idxs:
-                block_idx, within = divmod(idx, k)
-                bot = extract_proof(our_tree.mini_trees[block_idx], within)
-                top = extract_proof(our_tree.big_tree, block_idx)
-                paths.append(_pad_digest_path(bot.merkle_path + top.merkle_path, glob.max_depth))
-            return paths
-
-        return [t.root for t in trees], merkle_paths_of
+        stacks = GH.batched_slot_layers_gl(hash_fun, slot_cfgs, device)
+        return GH.digests(torch.cat([st[-1] for st in stacks], dim=2)), stacks[slot_index]
 
     return _proof_input_gl(hash_fun, glob, dset, slot_index, entropy, build_slots, device, stats)
 
@@ -165,27 +148,18 @@ def generate_proof_input_gl_streaming(
     device="cuda",
     stats: ProofStatsGL | None = None,
 ) -> ProofInputGL:
-    """Large-slot path: one streaming chunked build per slot and one batched
-    gather of the sampled paths on the device.  Slots other than the
-    sampled one keep only their root."""
+    """Large-slot path: one streaming chunked build per slot.  Slots other
+    than the sampled one keep only their root."""
 
     def build_slots():
         roots: list[Digest] = []
-        our_layers = None
+        stack = None
         for i in range(dset.n_slots):
             cfg = slot_cfg_from_dataset_cfg(glob, dset, i)
             layers = streaming_slot_layers_gl(cfg, hash_fun, chunk_cells, device=device)
             roots.append(GH.digests(layers[-1])[0])
             if i == slot_index:
-                our_layers = layers
-
-        def merkle_paths_of(idxs):
-            paths = GH.extract_gl_paths_device(
-                our_layers, torch.tensor(idxs, dtype=torch.int64), glob.max_depth
-            ).cpu()  # (max_depth, 4, 4, S)
-            per_depth = [GH.digests(paths[d]) for d in range(glob.max_depth)]
-            return [[per_depth[d][s] for d in range(glob.max_depth)] for s in range(len(idxs))]
-
-        return roots, merkle_paths_of
+                stack = layers
+        return roots, stack
 
     return _proof_input_gl(hash_fun, glob, dset, slot_index, entropy, build_slots, device, stats)

@@ -10,6 +10,13 @@ batched keyed compression a layer).  Layers are (NL, W) int32 limb
 planes.  The felt entry points (hash_cells_mont, slot_tree_from_felts) are
 the JAX package's API, kept for the parity tests.
 
+The proof inputs' pieces live here too: batched_slot_layers, the flat
+layer stacks of small slots built in one batch (the twin of
+models/streaming.streaming_slot_layers for large ones); sample_indices,
+the cell sampler (two K1 permutations for every counter), which every
+BN254 proof input calls; and the path gather on the device
+(extract_paths_device) with its one conversion to the host (paths_to_host).
+
 The JAX twin's TPU machinery is not carried over: the 512-lane padding of
 the Pallas tile (the CUDA kernels take any width), and the fixed-width
 scan over the narrow tail layers (it bounded XLA compile time; here a
@@ -18,11 +25,16 @@ plain per-layer loop runs each layer as it is).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..fields import bn254
 from ..ops import limbs as L
 from ..ops import poseidon2_cuda as P2C
+from ..ops import poseidon2_plain as P2
 from ..ops.poseidon2_plain import pad_felts_rate2, to_mont_stack
+from ..oracle.slot import SlotConfig
+from . import data as D
 
 NL = L.NL
 
@@ -122,22 +134,31 @@ def extract_paths_device(
     layers: list[torch.Tensor], indices: torch.Tensor, max_depth: int
 ) -> torch.Tensor:
     """Batched Merkle-path gather from a stored layer stack, on the layers'
-    device.
+    device, for either field (the Goldilocks proof inputs gather with it too).
 
-    layers[d]: (NL, W >> d) with W a power of two (the flat cell -> block ->
-    slot stack: the sibling of node j at depth d is node j^1,
-    Slot.hs:181-187).  indices: (S,) leaf indices.  Returns
-    (max_depth, NL, S) sibling planes, zero beyond the tree depth
-    (types.nim:27-37 padding).
+    layers[d]: node + (W >> d,), node (NL,) for BN254 or (4, 4) for
+    Goldilocks, W a power of two (the flat cell -> block -> slot stack: the
+    sibling of node j at depth d is node j^1, Slot.hs:181-187).  indices:
+    (S,) leaf indices.  Returns (max_depth,) + node + (S,) siblings, zero
+    beyond the tree depth (types.nim:27-37 padding) and at a layer of width
+    1 (a single-block slot's bottom-odd compression).
     """
     s = indices.shape[0]
     depth = len(layers) - 1
     idx = indices.to(layers[0].device, torch.int64)
-    out = layers[0].new_zeros((max_depth, NL, s))
+    out = layers[0].new_zeros((max_depth,) + layers[0].shape[:-1] + (s,))
     for d in range(min(depth, max_depth)):
-        if layers[d].shape[1] > 1:
-            out[d] = layers[d].index_select(1, (idx >> d) ^ 1)
+        if layers[d].shape[-1] > 1:
+            out[d] = layers[d].index_select(-1, (idx >> d) ^ 1)
     return out
+
+
+def paths_to_host(paths: torch.Tensor) -> list[list[int]]:
+    """(max_depth, NL, S) gathered sibling planes -> S paths of max_depth
+    canonical felts, in one copy and one unpack."""
+    depth, _, s = paths.shape
+    flat = L.unpack(paths.permute(1, 2, 0).reshape(NL, s * depth))  # sample-major
+    return [flat[k * depth:(k + 1) * depth] for k in range(s)]
 
 
 def from_mont_layers(layers: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -174,3 +195,56 @@ def slot_tree_from_felts(
 ) -> list[torch.Tensor]:
     """Encoded cells (nfelts, NL, B) -> the layers of slot_tree_from_rows."""
     return slot_tree_from_hashes(hash_cells_mont(cells_felts), block_tree_depth, n_groups)
+
+
+def slot_rows(cfgs: list[SlotConfig], device) -> torch.Tensor:
+    """The byte rows (cell_size, n_slots * n_cells) of identically shaped
+    slots on device, slot after slot, read in place: every cell is loaded
+    on the host first, so this is for small slots (batched_slot_layers(_gl))."""
+    if not cfgs:
+        raise ValueError("slot_rows: no slots")
+    shape0 = (cfgs[0].cell_size, cfgs[0].block_size, cfgs[0].n_cells)
+    if any((c.cell_size, c.block_size, c.n_cells) != shape0 for c in cfgs):
+        raise ValueError("slot_rows: slots must be identically shaped")
+    return torch.from_numpy(np.concatenate([D.load_slot_cells(c) for c in cfgs])).to(device).T
+
+
+def batched_slot_layers(cfgs: list[SlotConfig], device) -> list[list[torch.Tensor]]:
+    """The canonical flat layer stacks (cell hashes first, the slot root
+    last) of identically shaped slots, built in one batch: every cell of
+    every slot is loaded on the host first, so this is for small slots.
+    Each slot's stack is slices of the batch's layers.  A single-block
+    slot's stack ends in one more layer of width 1: the oracle's tree over
+    its one block root is a singleton bottom, which still gets one
+    bottom-odd compression (tree_reduce_general; Merkle.hs:71-74)."""
+    rows = slot_rows(cfgs, device)
+    n, cfg0 = len(cfgs), cfgs[0]
+    layers = slot_tree_from_rows(rows, cfg0.cells_per_block.bit_length() - 1, n_groups=n)
+    stacks = [list(st) for st in zip(*(lyr.tensor_split(n, dim=1) for lyr in layers))]
+    if cfg0.n_cells == cfg0.cells_per_block:
+        for st in stacks:
+            st.append(L.from_mont(tree_reduce_general(L.to_mont(st[-1]))[-1]))
+    return stacks
+
+
+def sample_indices(entropy: int, root: torch.Tensor, n_samples: int, log2n: int) -> torch.Tensor:
+    """BN254 cell indices of counters 1..n_samples, on the root's device.
+
+    root: (NL, 1) canonical slot root.  Index = low log2n bits of the
+    canonical sponge2([entropy, root, counter]) (extractLowBits,
+    types/bn254.nim:47-59): the first permutation does not depend on the
+    counter, so it runs once, and one batched permutation spans the
+    counters."""
+    if log2n > 32:
+        raise ValueError(f"log2 nCells {log2n} > 32")
+    dev = root.device
+    ent = L.pack([bn254.to_mont(entropy)], dev)
+    counters = L.pack([bn254.to_mont(c) for c in range(1, n_samples + 1)], dev)
+    iv = P2.SPONGE2_IV_MONT.to(dev, torch.int32)
+    st1 = permute(torch.stack([ent, L.to_mont(root), iv]))  # (3, NL, 1)
+    one = P2.ONE_MONT.to(dev, torch.int32)  # the `10*` padding felt
+    s = n_samples
+    x = L.add_mod(st1[0].expand(NL, s), counters)
+    y = L.add_mod(st1[1], one).expand(NL, s)
+    h = L.from_mont(permute(torch.stack([x, y, st1[2].expand(NL, s)]))[0]).to(torch.int64)
+    return (h[0] | (h[1] << 16)) & ((1 << log2n) - 1)

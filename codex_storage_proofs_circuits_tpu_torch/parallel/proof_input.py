@@ -4,20 +4,20 @@ Port of codex_storage_proofs_circuits_tpu/parallel/proof_input.py.  After
 the sharded dataset build (byte-row route, parallel/tree.py and
 parallel/gl_tree.py):
 
-  * sampling runs on the device from the slot root that lives there:
-    BN254's sponge2([entropy, slotRoot, counter]) is two permutations, the
-    first independent of the counter, so it runs once and one batched
-    permutation spans the counters (K1); Goldilocks digests
-    [entropy | root | intToDigest(counter)] in one batched sponge (K6's
-    felts entry; models/gl_hashing.sample_indices_gl, which the
-    single-device GL proof input shares);
+  * sampling runs on the device from the slot root that lives there, with
+    the single-device proof inputs' samplers: models/hashing.sample_indices
+    for BN254 (two K1 permutations for every counter) and
+    models/gl_hashing.sample_indices_gl for Goldilocks (one K6 sponge);
   * the Merkle paths gather from the sharded layers: at each depth the
     shard that owns a sampled index's sibling answers for it, and only the
     nSamples x maxDepth nodes come back (across processes by one
-    all_reduce, each node non-zero in one process only);
-  * the sampled cells are reread on the host (models/data.load_cells), as
-    the single-device paths do: gathering them from felts would need the
-    whole slot's felts.
+    all_reduce, each node non-zero in one process only), converted as the
+    single-device paths are (hashing.paths_to_host,
+    gl_hashing.paths_to_host_gl);
+  * the sampled cells are reread on the host in one models/data.load_cells
+    call, as the single-device paths do (gathering them from felts would
+    need the whole slot's felts), and Goldilocks encodes them with
+    gl_hashing.cell_digests.
 
 The result equals the oracle's ProofInput / ProofInputGL exactly.
 """
@@ -27,45 +27,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields import bn254
 from ..models import data as D
 from ..models import gl_hashing as GH
 from ..models import hashing as H
 from ..ops import limbs as L
-from ..ops import poseidon2_plain as P2
 from ..oracle.dataset import DataSetConfig, GlobalConfig, slot_cfg_from_dataset_cfg
-from ..oracle.goldilocks import Digest, bytes_to_digests_gl
+from ..oracle.goldilocks import Digest
 from ..oracle.goldilocks_pipeline import ProofInputGL, _pad_digest_path
 from ..oracle.merkle import MerkleTree, extract_proof
 from ..oracle.sampling import ProofInput
-from ..oracle.slot import cell_data_to_field_elements, load_cell
+from ..oracle.slot import cell_data_to_field_elements
 from .distributed import sum_over_processes
 from .gl_tree import sharded_gl_dataset_build_rows
 from .mesh import Mesh, cells_axis, slots_axis
 from .tree import sharded_dataset_build_rows
 
 NL = L.NL
-
-
-def sample_indices(entropy: int, root: torch.Tensor, n_samples: int, log2n: int) -> torch.Tensor:
-    """BN254 cell indices of counters 1..n_samples, on the root's device.
-
-    root: (NL, 1) canonical slot root.  Index = low log2n bits of the
-    canonical sponge2([entropy, root, counter]) (extractLowBits,
-    types/bn254.nim:47-59)."""
-    if log2n > 32:
-        raise ValueError(f"log2 nCells {log2n} > 32")
-    dev = root.device
-    ent = L.pack([bn254.to_mont(entropy)], dev)
-    counters = L.pack([bn254.to_mont(c) for c in range(1, n_samples + 1)], dev)
-    iv = P2.SPONGE2_IV_MONT.to(dev, torch.int32)
-    st1 = H.permute(torch.stack([ent, L.to_mont(root), iv]))  # (3, NL, 1)
-    one = P2.ONE_MONT.to(dev, torch.int32)  # the `10*` padding felt
-    s = n_samples
-    x = L.add_mod(st1[0].expand(NL, s), counters)
-    y = L.add_mod(st1[1], one).expand(NL, s)
-    h = L.from_mont(H.permute(torch.stack([x, y, st1[2].expand(NL, s)]))[0]).to(torch.int64)
-    return (h[0] | (h[1] << 16)) & ((1 << log2n) - 1)
 
 
 def _sample_and_gather(mesh: Mesh, slot: int, locs, tops, sample, node: tuple[int, ...],
@@ -131,7 +108,7 @@ def sharded_proof_input(glob: GlobalConfig, dset: DataSetConfig, slot_index: int
     log2n = (dset.n_cells - 1).bit_length()
     idxs, root, paths = _sample_and_gather(
         mesh, slot_index, locs, tops,
-        lambda r: sample_indices(entropy, r, dset.n_samples, log2n),
+        lambda r: H.sample_indices(entropy, r, dset.n_samples, log2n),
         (NL,), dset.n_samples, glob.max_depth)
     cells = D.load_cells(cfgs[slot_index], np.asarray(idxs))
     return ProofInput(
@@ -143,7 +120,7 @@ def sharded_proof_input(glob: GlobalConfig, dset: DataSetConfig, slot_index: int
         n_cells_per_slot=dset.n_cells,
         slot_proof=slot_proof.merkle_path,
         cell_data=[cell_data_to_field_elements(c.tobytes()) for c in cells],
-        merkle_paths=[L.unpack(paths[:, :, k].T) for k in range(dset.n_samples)],
+        merkle_paths=H.paths_to_host(paths),
     )
 
 
@@ -163,7 +140,7 @@ def sharded_gl_proof_input(hash_fun: str, glob: GlobalConfig, dset: DataSetConfi
         mesh, slot_index, locs, tops,
         lambda r: GH.sample_indices_gl(hash_fun, entropy, r, dset.n_samples, log2n),
         (GH.FELTS_PER_DIGEST, GH.NL), dset.n_samples, glob.max_depth)
-    per_depth = [GH.digests(paths[d]) for d in range(glob.max_depth)]
+    cells = D.load_cells(cfgs[slot_index], np.asarray(idxs))
     return ProofInputGL(
         entropy=entropy,
         data_set_root=dset_tree.root,
@@ -172,7 +149,6 @@ def sharded_gl_proof_input(hash_fun: str, glob: GlobalConfig, dset: DataSetConfi
         n_slots_per_dataset=dset.n_slots,
         n_cells_per_slot=dset.n_cells,
         slot_proof=_pad_digest_path(slot_proof.merkle_path, glob.max_log2_n_slots),
-        cell_data=[bytes_to_digests_gl(load_cell(cfgs[slot_index], i)) for i in idxs],
-        merkle_paths=[[per_depth[d][k] for d in range(glob.max_depth)]
-                      for k in range(dset.n_samples)],
+        cell_data=GH.cell_digests(cells, dlayers[0].device),  # this process's device
+        merkle_paths=GH.paths_to_host_gl(paths),
     )

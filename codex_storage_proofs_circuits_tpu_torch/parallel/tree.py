@@ -115,8 +115,8 @@ def build_dataset(ops: FieldOps, shard_layers, n_cells: int, n_slots_padded: int
     per = n_slots_padded // n_rows
     # a single-block slot: the oracle's tree over its one block root is a
     # singleton bottom, which still gets one bottom-odd compression (key 3
-    # against zero, oracle/merkle.py merkle_tree), as models/slot_tree.py
-    # gives it on one device
+    # against zero, oracle/merkle.py merkle_tree), as
+    # models/hashing.batched_slot_layers gives it on one device
     single_block = n_cells == 1 << btd
 
     locs = [[None] * n_slots_padded for _ in range(n_local)]

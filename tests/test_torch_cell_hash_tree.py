@@ -30,7 +30,7 @@ BTD = 2
 @pytest.mark.parametrize("field", ["bn254", "poseidon2", "monolith"])
 def test_slot_tree_from_rows_equals_the_felt_path(field):
     cells = torch.from_numpy(gen_fake_cells(64, 31, np.arange(32)))
-    rows = cells.T  # read in place, as models/slot_tree.py hands them over
+    rows = cells.T  # read in place, as models/hashing.batched_slot_layers hands them over
     if field == "bn254":
         got = TH.slot_tree_from_rows(rows, BTD, n_groups=2)
         want = TH.slot_tree_from_felts(TE.encode_cells(cells), BTD, n_groups=2)

@@ -79,14 +79,20 @@ def test_streaming_file_backed_slot_matches_oracle(hash_fun, tmp_path):
 
 @pytest.mark.parametrize("hash_fun", HASHES)
 def test_single_block_slot_gets_the_bottom_odd_compression(hash_fun):
+    # the batched stack of a single-block slot: the block's mini-tree, then
+    # the big tree over its one root, which is that root's bottom-odd
+    # compression
     cfgs = [SlotConfig(cell_size=64, block_size=256, n_cells=4, n_samples=1,
                        data_src=DataSource("fake", seed=s)) for s in (3, 4)]
-    trees = TGH.build_slot_trees_gl(hash_fun, cfgs, "cpu")
-    for cfg, tree in zip(cfgs, trees):
+    stacks = TGH.batched_slot_layers_gl(hash_fun, cfgs, "cpu")
+    btd = 2
+    for cfg, stack in zip(cfgs, stacks):
         want = calc_slot_tree_gl(hash_fun, cfg)
-        assert tree.root == want.root
-        assert tree.big_tree.layers == want.big_tree.layers
-        assert [m.layers for m in tree.mini_trees] == [m.layers for m in want.mini_trees]
+        got = [TGH.digests(lyr) for lyr in stack]
+        assert got[-1] == [want.root]
+        assert len(want.mini_trees) == 1 and len(want.big_tree.layers) == 2
+        assert got[: btd + 1] == [list(lyr) for lyr in want.mini_trees[0].layers]
+        assert got[btd:] == [list(lyr) for lyr in want.big_tree.layers]
 
 
 @pytest.mark.parametrize("width", [1, 5, 6])

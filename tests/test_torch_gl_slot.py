@@ -24,6 +24,7 @@ from codex_storage_proofs_circuits_tpu.oracle.goldilocks_pipeline import calc_sl
 from codex_storage_proofs_circuits_tpu.oracle.slot import DataSource, SlotConfig
 from codex_storage_proofs_circuits_tpu_torch import convert
 from codex_storage_proofs_circuits_tpu_torch.models import gl_hashing as TGH
+from codex_storage_proofs_circuits_tpu_torch.models import hashing as TH
 from codex_storage_proofs_circuits_tpu_torch.models import streaming as TS
 
 HASHES = ("poseidon2", "monolith")
@@ -79,6 +80,6 @@ def test_extract_paths_device_on_jax_layers():
     want = np.asarray(
         JGH.extract_gl_paths_device([jnp.asarray(x) for x in jax_layers], jnp.asarray(idxs), 12)
     )
-    got = TGH.extract_gl_paths_device(convert.layers_from_numpy(jax_layers),
-                                      torch.tensor(idxs), 12)
+    got = TH.extract_paths_device(convert.layers_from_numpy(jax_layers),
+                                  torch.tensor(idxs), 12)
     assert np.array_equal(got.numpy(), want.astype(np.int32))

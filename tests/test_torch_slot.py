@@ -24,8 +24,10 @@ from codex_storage_proofs_circuits_tpu.ops import encode as JE
 from codex_storage_proofs_circuits_tpu.oracle.dataset import DataSetConfig, GlobalConfig
 from codex_storage_proofs_circuits_tpu.oracle.merkle import merkle_tree
 from codex_storage_proofs_circuits_tpu.oracle.sampling import generate_proof_input as oracle_pi
+from codex_storage_proofs_circuits_tpu.oracle.sampling import sample_cell_index
 from codex_storage_proofs_circuits_tpu.oracle.slot import DataSource, SlotConfig, calc_slot_tree
 from codex_storage_proofs_circuits_tpu_torch import convert
+from codex_storage_proofs_circuits_tpu_torch.models import gl_hashing as TGH
 from codex_storage_proofs_circuits_tpu_torch.models import hashing as TH
 from codex_storage_proofs_circuits_tpu_torch.models import proof_input as TPI
 from codex_storage_proofs_circuits_tpu_torch.models import streaming as TS
@@ -164,6 +166,39 @@ def test_streaming_proof_input_matches_oracle():
     bad.merkle_paths[0][1] ^= 1
     with pytest.raises(AssertionError):
         evaluate_witness(GLOB, bad, generate_witness(GLOB, bad))
+
+
+@pytest.mark.parametrize("log2n", [1, 5, 19, 32])
+def test_device_sampler_matches_the_oracle(log2n):
+    rng = np.random.default_rng(log2n)
+    entropy, root = (int.from_bytes(rng.bytes(32), "little") % F.P for _ in range(2))
+    n_samples = 6
+    got = TH.sample_indices(entropy, TL.pack([root]), n_samples, log2n).tolist()
+    assert got == [sample_cell_index(entropy, root, 1 << log2n, c)
+                   for c in range(1, n_samples + 1)]
+
+
+def test_device_sampler_refuses_more_than_32_bits():
+    with pytest.raises(ValueError):
+        TH.sample_indices(1, TL.pack([2]), 2, 33)
+
+
+@pytest.mark.parametrize("field", ["bn254", "goldilocks"])
+def test_batched_stacks_equal_the_streaming_stacks(field):
+    # a multi-block dataset: the batched build's stacks are the streaming
+    # build's, layer for layer
+    cfgs = [SlotConfig(cell_size=64, block_size=256, n_cells=32, n_samples=1,
+                       data_src=DataSource("fake", seed=s)) for s in (8, 9)]
+    if field == "bn254":
+        stacks = TH.batched_slot_layers(cfgs, "cpu")
+        want = [TS.streaming_slot_layers(c, chunk_cells=16, device="cpu") for c in cfgs]
+    else:
+        stacks = TGH.batched_slot_layers_gl("poseidon2", cfgs, "cpu")
+        want = [TS.streaming_slot_layers_gl(c, "poseidon2", chunk_cells=16, device="cpu")
+                for c in cfgs]
+    for got, w in zip(stacks, want):
+        assert len(got) == len(w) == 6
+        assert all(torch.equal(a, b) for a, b in zip(got, w))
 
 
 def test_cli_output_is_byte_identical_to_the_jax_cli_oracle(tmp_path):
